@@ -94,11 +94,6 @@ def main(dataset="synthetic-large", split=0, M=100, warm_iters=1000,
         ll = sgpr_elbo_from_stats(kern, {**state, "Z": Z_}, stats_f, N, 1e-5)
         return ll + log_prior(prior, state)
 
-    if num_chains > 1:
-        # the streamed pallas stats kernels cannot batch under the
-        # vmapped-chain scan (PERF.md round 5) - force the XLA stats path
-        import os as _os
-        _os.environ.setdefault("GGP_DISABLE_PALLAS", "1")
     t0 = time.time()
     samples, stats = run_sghmc(logpost, init, jax.random.PRNGKey(0), N, cfg,
                                num_chains=num_chains,

@@ -4,7 +4,7 @@ Rebuild of the reference study (experiments/lml_surface.py:93-221): contour
 surfaces of the negative log marginal likelihood over (lengthscale, noise)
 for growing train sizes, plus an ML-II convergence scatter from random
 initialisations — the motivation for being Bayesian about hyperparameters.
-TPU-native: the whole (grid x train-size) surface is one vmapped-jitted
+Here the whole (grid x train-size) surface is one vmapped-jitted
 evaluation instead of nested Python loops.
 """
 

@@ -4,9 +4,9 @@ Rebuild of the reference's main runner (experiments/regression.py:39-245):
 trains one model family over datasets x splits, computes RMSE/NLPD (mixture
 NLPD for Bayesian models), logs JSON metrics per run and sampler summaries.
 
-Differences by design (TPU-native):
+Differences by design:
 * splits are independent jitted programs; fan-out uses sequential dispatch on
-  one chip (device-level parallelism comes from vmapped chains inside each
+  one device (device-level parallelism comes from vmapped chains inside each
   run) instead of joblib processes (experiments/regression.py:219-231);
 * wall-clock and pure-sampling seconds are recorded like the reference's
   ``perf_times`` (experiments/regression.py:157-162).

@@ -1,6 +1,6 @@
-"""ggp_tpu — TPU-native Generalised (fully-Bayesian) Gaussian Processes.
+"""ggp_tpu — Generalised (fully-Bayesian) Gaussian Processes in JAX.
 
-From-scratch JAX/XLA/Pallas rebuild of vr308/Generalised-Gaussian-Processes:
+From-scratch JAX/XLA rebuild of vr308/Generalised-Gaussian-Processes:
 sparse GP regression and classification with distributions over kernel
 hyperparameters, inferred by jitted HMC/NUTS (vmapped parallel chains) or
 variational inference — one compiled program end-to-end instead of the
@@ -9,9 +9,10 @@ reference's GPyTorch/pymc3/gpflow three-backend sprawl.
 
 import jax as _jax
 
-# GP linear algebra is Cholesky-bound: bf16 MXU passes (the TPU default) put
-# ~1e-3 error into Gram matrices, which exceeds any reasonable jitter and
-# breaks PSD-ness. Force f32 matmul accumulation (still MXU, multi-pass).
+# GP linear algebra is Cholesky-bound. Left at its default precision, a GPU
+# may run float32 matmuls in TF32 (10-bit mantissa), which puts ~1e-3
+# relative error into Gram matrices: more than any reasonable jitter, so the
+# Cholesky of Kmm or B = I + A A^T loses PSD-ness. Force full float32.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from . import config, kernels, likelihoods, means, priors

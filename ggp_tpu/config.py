@@ -1,9 +1,9 @@
 """Global configuration for ggp_tpu.
 
-TPU-native rethink of the reference's ``utils/config.py``
-(reference: utils/config.py:8-19): instead of torch/GPU discovery we carry a
-dtype policy (f64 on CPU for parity testing, f32 on TPU), a single jitter
-policy (the reference scatters 1e-6/1e-5/1e-4 across files, e.g.
+Rethink of the reference's ``utils/config.py`` (reference:
+utils/config.py:8-19): instead of torch/GPU discovery we carry a dtype
+policy (f64 when x64 is enabled, f32 otherwise), a single jitter policy (the
+reference scatters 1e-6/1e-5/1e-4 across files, e.g.
 experiments/regression.py:34, models/bayesian_sgpr_hmc.py:226), and the
 canonical split seed ``BASE_SEED=173`` (reference: utils/config.py:14,
 used by utils/dataset.py:62).
@@ -16,27 +16,35 @@ import os
 import jax
 import jax.numpy as jnp
 
-# Persistent compilation cache: NUTS/while-loop programs are expensive to
-# compile, and the TPU link in some environments is flaky — caching makes a
-# process restart nearly free.
-def _enable_compile_cache():
-    # TPU-only: XLA:CPU AOT caching is machine-feature-sensitive (risk of
-    # SIGILL when cache entries cross heterogeneous hosts).
-    if os.environ.get("GGP_NO_COMPILE_CACHE"):
-        return
-    try:
-        # Inspect the configured platform list WITHOUT initialising a backend
-        # (backend init can block when the TPU link is down).
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def compile_cache_dir(environ=os.environ, platforms=None):
+    """Where this package puts JAX's persistent compilation cache, or None
+    to set nothing.
+
+    NUTS/while-loop programs take seconds to compile, so a process restart
+    should find them again. A ``JAX_COMPILATION_CACHE_DIR`` set by the
+    caller is JAX's own setting and wins: nothing is set here then.
+    Otherwise the cache lives at the fixed path ``<checkout>/.jax_cache``
+    (the path is part of what makes a later process hit). CPU-only
+    processes keep no cache: XLA:CPU entries are specific to the host's CPU
+    features.
+    """
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    if platforms is None:
         platforms = jax.config.jax_platforms or ""
-        if platforms and set(platforms.split(",")) <= {"cpu"}:
-            return
-        _cache_dir = os.environ.get(
-            "GGP_COMPILE_CACHE",
-            os.path.join(os.path.dirname(os.path.dirname(__file__)), ".jax_cache"))
-        jax.config.update("jax_compilation_cache_dir", _cache_dir)
+    if platforms and set(platforms.split(",")) <= {"cpu"}:
+        return None
+    return os.path.join(_CHECKOUT, ".jax_cache")
+
+
+def _enable_compile_cache():
+    cache_dir = compile_cache_dir()
+    if cache_dir is not None:
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover - older jax
-        pass
 
 
 _enable_compile_cache()
@@ -46,28 +54,21 @@ EPSILON = 1e-6           # reference: utils/config.py:13
 BASE_SEED = 173          # reference: utils/config.py:14 (train/test split shuffling)
 
 # Path roots (reference: utils/config.py:16-19) ------------------------------
-BASE_PATH = os.environ.get("GGP_BASE_PATH", os.path.dirname(os.path.dirname(__file__)))
+BASE_PATH = os.environ.get("GGP_BASE_PATH", _CHECKOUT)
 RESULTS_DIR = os.path.join(BASE_PATH, "results")
 DATASET_DIR = os.environ.get("GGP_DATASET_DIR", os.path.join(BASE_PATH, "data"))
 LOG_DIR = os.path.join(BASE_PATH, "logs")
 
 
-def on_tpu() -> bool:
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:  # pragma: no cover
-        return False
-
-
 def default_dtype() -> jnp.dtype:
-    """f64 when x64 is enabled (CPU parity tests), else f32 (TPU)."""
+    """f64 when x64 is enabled (CPU parity tests), else f32."""
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 
 def default_jitter(dtype=None) -> float:
     """Diagonal jitter added before every Cholesky.
 
-    f64 keeps the reference's 1e-6 scale; f32 on TPU needs more headroom
+    f64 keeps the reference's 1e-6 scale; f32 needs more headroom
     (the reference itself escalates to 1e-4 for ill-conditioned mixture
     covariances, models/bayesian_sgpr_hmc.py:226).
     """

@@ -1,6 +1,6 @@
 """Jitted HMC / NUTS with windowed warmup adaptation.
 
-TPU-native replacement for the reference's samplers: pymc3 NUTS driving the
+Compiled replacement for the reference's samplers: pymc3 NUTS driving the
 VFE marginal (models/bayesian_sgpr_hmc.py:74-78), pymc3 NUTS on the dense
 marginal (models/gpr_hmc.py:57), and tfp HMC for gpflow SGPMC
 (models/sgp_hmc.py:63-83 — the only compiled sampler in the reference, and
@@ -9,7 +9,7 @@ the design precedent here). Differences by design:
 * NUTS is the *iterative* fixed-max-depth formulation (checkpoint buffers +
   bit-twiddled U-turn checks) so the whole transition is one
   ``lax.while_loop`` — no recursion, no dynamic shapes, everything stays
-  on-chip under ``jit``.
+  on the device under ``jit``.
 * Warmup is Stan-style: dual-averaged step size targeting accept=0.8 with
   expanding diagonal-mass windows (Welford), matching pymc3's default
   adaptation quality.
@@ -268,7 +268,10 @@ def da_init(eps0):
                    jnp.log(10.0 * eps0), jnp.zeros_like(eps0))
 
 
-def da_update(s: DAState, accept_prob, target=0.8, gamma=0.05, t0=10.0,
+_DA_T0 = 10      # dual-averaging stabiliser t0 (Hoffman & Gelman 2014)
+
+
+def da_update(s: DAState, accept_prob, target=0.8, gamma=0.05, t0=_DA_T0,
               kappa=0.75):
     t = s.t + 1.0
     h_avg = (1.0 - 1.0 / (t + t0)) * s.h_avg + (target - accept_prob) / (t + t0)
@@ -306,13 +309,22 @@ def welford_variance(s: WelfordState):
 
 def warmup_schedule(num_warmup: int, init_buffer: int = 75,
                     term_buffer: int = 50, base_window: int = 25):
-    """(in_window, window_end) boolean arrays, Stan's expanding windows."""
+    """(in_window, window_end) boolean arrays, Stan's expanding windows.
+
+    A short warmup takes Stan's 15/75/10 split. Each window end restarts
+    dual averaging, whose averaged step size needs about ``_DA_T0``
+    iterations to settle; with fewer left after the last window (under 100
+    warmup steps) the final step size is left several times too large, so
+    such a warmup adapts the step size only, on the unit metric.
+    """
+    in_window = np.zeros(num_warmup, bool)
+    window_end = np.zeros(num_warmup, bool)
     if num_warmup < init_buffer + term_buffer + base_window:
         init_buffer = max(1, int(0.15 * num_warmup))
         term_buffer = max(1, int(0.10 * num_warmup))
         base_window = max(1, num_warmup - init_buffer - term_buffer)
-    in_window = np.zeros(num_warmup, bool)
-    window_end = np.zeros(num_warmup, bool)
+        if term_buffer < _DA_T0:
+            return jnp.asarray(in_window), jnp.asarray(window_end)
     t = init_buffer
     w = base_window
     while t < num_warmup - term_buffer:
@@ -403,7 +415,7 @@ def _make_warm_step(potential_vg, kernel, cfg: NUTSConfig, dim, dtype):
 
 
 def _single_chain(potential_vg, z0, key, cfg: NUTSConfig, in_window,
-                  window_end, kernel_override=None):
+                  window_end):
     dim = z0.shape[0]
     dtype = z0.dtype
     U0, g0 = potential_vg(z0)
@@ -415,9 +427,7 @@ def _single_chain(potential_vg, z0, key, cfg: NUTSConfig, in_window,
     da = da_init(eps)
     wf = welford_init(dim, dtype)
 
-    if kernel_override is not None:
-        kernel = kernel_override
-    elif cfg.algorithm == "nuts":
+    if cfg.algorithm == "nuts":
         kernel = partial(nuts_kernel, max_depth=cfg.max_depth)
     else:
         kernel = partial(hmc_kernel, num_leapfrog=cfg.num_leapfrog)
@@ -447,252 +457,8 @@ def _single_chain(potential_vg, z0, key, cfg: NUTSConfig, in_window,
     return zs, stats
 
 
-def _single_chain_fused(fused, z0, key, cfg: NUTSConfig, in_window,
-                        window_end):
-    """Chunked fused-kernel chain: K transitions per Pallas call with the
-    warmup adaptation executed in-kernel (ops/fused_nuts). Semantically
-    identical to :func:`_single_chain` with the NUTS kernel — same dual
-    averaging, Welford windows, and transition logic — but the per-call
-    dispatch overhead (~300us, PERF.md) amortises over the chunk."""
-    import numpy as _np
-    dim = z0.shape[0]
-    dtype = z0.dtype
-    K = fused.chunk
-    if getattr(fused, "algorithm", cfg.algorithm) != cfg.algorithm:
-        raise ValueError(
-            f"fused kernel was built for algorithm="
-            f"{fused.algorithm!r} but the sampler config asks for "
-            f"{cfg.algorithm!r}")
-    # target_accept/adapt_mass are compiled into the warm-chunk kernel at
-    # build time — a mismatch would silently adapt to the wrong target
-    # (ADVICE r2), so validate like algorithm above
-    if abs(getattr(fused, "target_accept", cfg.target_accept)
-           - cfg.target_accept) > 1e-9:
-        raise ValueError(
-            f"fused kernel was built with target_accept="
-            f"{fused.target_accept} but the sampler config asks for "
-            f"{cfg.target_accept}")
-    if getattr(fused, "adapt_mass", cfg.adapt_mass) != cfg.adapt_mass:
-        raise ValueError(
-            f"fused kernel was built with adapt_mass={fused.adapt_mass} "
-            f"but the sampler config asks for {cfg.adapt_mass}")
-    U0, g0 = fused.potential(z0)
-    inv_mass = jnp.ones(dim, dtype)
-
-    key, k_eps = jax.random.split(key)
-    eps = find_reasonable_step_size(fused.potential, z0, U0, g0, k_eps,
-                                    inv_mass, cfg.init_step_size)
-    da = da_init(eps)
-    wf = welford_init(dim, dtype)
-
-    n_wchunks = -(-cfg.num_warmup // K)
-    pad = n_wchunks * K - cfg.num_warmup
-    in_w = jnp.concatenate([in_window, jnp.zeros(pad, bool)]).reshape(
-        n_wchunks, K)
-    w_end = jnp.concatenate([window_end, jnp.zeros(pad, bool)]).reshape(
-        n_wchunks, K)
-    # active counts per chunk keep the adaptation schedule EXACT (skipped
-    # tail steps are no-ops in-kernel, not extra adaptation steps)
-    n_act = jnp.minimum(
-        jnp.full(n_wchunks, K, jnp.int32),
-        cfg.num_warmup - jnp.arange(n_wchunks, dtype=jnp.int32) * K)
-
-    def warm_step(carry, inputs):
-        z, U, g, key, da, wf, inv_mass = carry
-        in_w_c, w_end_c, na = inputs
-        key, k = jax.random.split(key)
-        z, U, g, da, wf, inv_mass, _, _ = fused.warm_chunk(
-            z, U, g, k, da, wf, inv_mass, in_w_c, w_end_c, na)
-        return (z, U, g, key, da, wf, inv_mass), None
-
-    carry = (z0, U0, g0, key, da, wf, inv_mass)
-    carry, _ = jax.lax.scan(warm_step, carry, (in_w, w_end, n_act))
-    (z, U, g, key, da, wf, inv_mass) = carry
-    eps = jnp.exp(da.log_eps_avg)
-
-    n_schunks = -(-cfg.num_samples // K)
-    s_act = jnp.minimum(
-        jnp.full(n_schunks, K, jnp.int32),
-        cfg.num_samples - jnp.arange(n_schunks, dtype=jnp.int32) * K)
-
-    def sample_step(carry, na):
-        z, U, g, key = carry
-        key, k = jax.random.split(key)
-        zs, z1, U1, g1, stats = fused.sample_chunk(z, U, g, k, eps, inv_mass,
-                                                   na)
-        return (z1, U1, g1, key), (zs, stats)
-
-    (_, _, _, _), (zs, stats) = jax.lax.scan(sample_step, (z, U, g, key),
-                                             s_act)
-    # (n_schunks, K, dim) -> (S, dim), trimming the inactive tail
-    zs = zs.reshape(n_schunks * K, dim)[:cfg.num_samples]
-    stats = jax.tree_util.tree_map(
-        lambda a: a.reshape((n_schunks * K,) + a.shape[2:])[:cfg.num_samples],
-        stats)
-    stats["step_size"] = eps
-    stats["inv_mass"] = inv_mass
-    return zs, stats
-
-
-def _find_reasonable_step_size_batched(potential, z0s, U0s, g0s, key,
-                                       inv_mass, init_eps=1.0):
-    """Per-chain Hoffman & Gelman Algorithm 4 on a BATCHED potential
-    ((C, dim) -> ((C,), (C, dim))): all chains evaluate together each
-    doubling iteration; converged chains freeze their eps."""
-    C = z0s.shape[0]
-    dtype = z0s.dtype
-    r0 = jax.random.normal(key, z0s.shape, dtype) / jnp.sqrt(inv_mass)
-    H0 = U0s + 0.5 * jnp.sum(inv_mass * r0 * r0, axis=1)
-    log_half = jnp.log(jnp.asarray(0.5, dtype))
-
-    def accept_at(eps):
-        e = eps[:, None]
-        r_half = r0 - 0.5 * e * g0s
-        z = z0s + e * inv_mass * r_half
-        U, g = potential(z)
-        r = r_half - 0.5 * e * g
-        H = U + 0.5 * jnp.sum(inv_mass * r * r, axis=1)
-        return jnp.where(jnp.isnan(H), -jnp.inf, H0 - H)
-
-    eps = jnp.full((C,), init_eps, dtype)
-    la0 = accept_at(eps)
-    direction = jnp.where(la0 > log_half, 1.0, -1.0)
-
-    def crossed(la):
-        return jnp.where(direction > 0, la <= log_half, la > log_half)
-
-    def cond(c):
-        eps, la, i = c
-        return (~jnp.all(crossed(la))) & (i < 64)
-
-    def body(c):
-        eps, la, i = c
-        done = crossed(la)
-        fac = jnp.where(direction > 0, 2.0, 0.5).astype(dtype)
-        eps1 = jnp.where(done, eps, eps * fac)
-        la1 = jnp.where(done, la, accept_at(eps1))
-        return eps1, la1, i + 1
-
-    eps, _, _ = jax.lax.while_loop(cond, body, (eps, la0, jnp.int32(0)))
-    return jnp.where(direction > 0, eps * 0.5, eps)
-
-
-def _validate_multichain_cfg(fused, cfg: NUTSConfig) -> str:
-    """The chunk kernels compile algorithm/adaptation settings in at build
-    time — a sampler-config mismatch would silently run the wrong sampler
-    (ADVICE r2), so both multichain drivers validate before dispatch."""
-    algo = getattr(fused, "algo", "hmc")
-    if cfg.algorithm != algo:
-        raise ValueError(f"multichain fused kernel built for algorithm="
-                         f"{algo!r}; config asks for {cfg.algorithm!r}")
-    if algo == "nuts":
-        if fused.max_depth != cfg.max_depth:
-            raise ValueError(f"fused kernel built with max_depth="
-                             f"{fused.max_depth}, config has "
-                             f"{cfg.max_depth}")
-    elif fused.num_leapfrog != cfg.num_leapfrog:
-        raise ValueError(f"fused kernel built with num_leapfrog="
-                         f"{fused.num_leapfrog}, config has "
-                         f"{cfg.num_leapfrog}")
-    if abs(fused.target_accept - cfg.target_accept) > 1e-9:
-        raise ValueError(f"fused kernel built with target_accept="
-                         f"{fused.target_accept}, config has "
-                         f"{cfg.target_accept}")
-    if fused.adapt_mass != cfg.adapt_mass:
-        raise ValueError(f"fused kernel built with adapt_mass="
-                         f"{fused.adapt_mass}, config has {cfg.adapt_mass}")
-    return algo
-
-
-def _multichain_fused_hmc(fused, z0s, key, cfg: NUTSConfig, in_window,
-                          window_end):
-    """All C chains advance lock-step inside chain-batched Pallas chunk
-    kernels (ops.fused_multichain) — the throughput configuration
-    (VERDICT r2 item 3). Semantics mirror ``vmap(_single_chain)``:
-    per-chain dual averaging, Welford windows, per-chain eps. Round 3:
-    handles both fixed-leapfrog HMC and lock-step multinomial NUTS
-    (``fused.algo``) — NUTS chunks also report per-draw depth/leaf
-    counts."""
-    # the chain-batched Pallas kernels are f32-only (package matmul
-    # policy); under x64 (CPU test envs) the state arrives f64 — cast at
-    # the driver boundary (no-op on TPU)
-    z0s = z0s.astype(jnp.float32)
-    C, dim = z0s.shape
-    dtype = z0s.dtype
-    K = fused.chunk
-    algo = _validate_multichain_cfg(fused, cfg)
-
-    U0, g0 = fused.potential(z0s)
-    inv_mass = jnp.ones((C, dim), dtype)
-    key, k_eps = jax.random.split(key)
-    eps = _find_reasonable_step_size_batched(fused.potential, z0s, U0, g0,
-                                             k_eps, inv_mass,
-                                             cfg.init_step_size)
-    le = jnp.log(eps)
-    zc = jnp.zeros((C,), dtype)
-    da_cols = (le, le, zc, jnp.log(10.0) + le, zc)
-    wf = (jnp.zeros((C, dim), dtype), jnp.zeros((C, dim), dtype), zc)
-
-    n_wchunks = -(-cfg.num_warmup // K)
-    pad = n_wchunks * K - cfg.num_warmup
-    in_w = jnp.concatenate([in_window, jnp.zeros(pad, bool)]).reshape(
-        n_wchunks, K)
-    w_end = jnp.concatenate([window_end, jnp.zeros(pad, bool)]).reshape(
-        n_wchunks, K)
-    n_act = jnp.minimum(
-        jnp.full(n_wchunks, K, jnp.int32),
-        cfg.num_warmup - jnp.arange(n_wchunks, dtype=jnp.int32) * K)
-
-    def warm_step(carry, inputs):
-        z, U, g, key, da_cols, wf, inv_mass = carry
-        in_w_c, w_end_c, na = inputs
-        key, k = jax.random.split(key)
-        z, U, g, da_cols, wf, inv_mass, _, _ = fused.warm_chunk(
-            z, U, g, k, da_cols, wf, inv_mass, in_w_c, w_end_c, na)
-        return (z, U, g, key, da_cols, wf, inv_mass), None
-
-    carry = (z0s, U0, g0, key, da_cols, wf, inv_mass)
-    carry, _ = jax.lax.scan(warm_step, carry, (in_w, w_end, n_act))
-    (z, U, g, key, da_cols, wf, inv_mass) = carry
-    eps = jnp.exp(da_cols[1])                                # (C,)
-
-    n_schunks = -(-cfg.num_samples // K)
-    s_act = jnp.minimum(
-        jnp.full(n_schunks, K, jnp.int32),
-        cfg.num_samples - jnp.arange(n_schunks, dtype=jnp.int32) * K)
-
-    def sample_step(carry, na):
-        z, U, g, key = carry
-        key, k = jax.random.split(key)
-        out = fused.sample_chunk(z, U, g, k, eps, inv_mass, na)
-        if algo == "nuts":
-            zs, z1, U1, g1, acc, div, dep, nlv = out
-            return (z1, U1, g1, key), (zs, acc, div, dep, nlv)
-        zs, z1, U1, g1, acc, div = out
-        return (z1, U1, g1, key), (zs, acc, div,
-                                   jnp.zeros_like(acc),
-                                   jnp.full_like(acc, cfg.num_leapfrog))
-
-    (_, _, _, _), (zs, acc, div, dep, nlv) = jax.lax.scan(
-        sample_step, (z, U, g, key), s_act)
-    # (n_schunks, K, C, dim) -> (C, S, dim), trimming the inactive tail
-    S = cfg.num_samples
-    zs = zs.reshape(n_schunks * K, C, dim)[:S].transpose(1, 0, 2)
-    acc = acc.reshape(n_schunks * K, C)[:S].T                # (C, S)
-    div = div.reshape(n_schunks * K, C)[:S].T > 0.5
-    dep = dep.reshape(n_schunks * K, C)[:S].T.astype(jnp.int32)
-    nlv = nlv.reshape(n_schunks * K, C)[:S].T.astype(jnp.int32)
-    stats = {"accept_prob": acc, "diverging": div,
-             "depth": dep, "n_leapfrog": nlv,
-             "energy": jnp.zeros_like(acc),
-             "step_size": eps, "inv_mass": inv_mass}
-    return zs, stats
-
-
 def build_sampler(logprob_fn: Callable, example_params, cfg: NUTSConfig,
-                  num_chains: int = 1, jitter_init: float = 0.1, mesh=None,
-                  potential_fn: Callable | None = None,
-                  fused_builder: Callable | None = None):
+                  num_chains: int = 1, jitter_init: float = 0.1, mesh=None):
     """Compile-once sampler factory.
 
     ``logprob_fn(params, data)`` — ``data`` is an arbitrary pytree traced as
@@ -703,12 +469,6 @@ def build_sampler(logprob_fn: Callable, example_params, cfg: NUTSConfig,
     ``mesh``: a Mesh with a ``chains`` axis — chains shard across devices
     (data pytree replicated). The reference has no chain parallelism at all
     (every sampler call is chains=1, models/bayesian_sgpr_hmc.py:78).
-
-    ``potential_fn(zvec, data) -> (U, grad)``: optional fused replacement for
-    ``jax.value_and_grad`` of ``-logprob_fn`` — used by the custom-call-free
-    collapsed-bound path (ggp_tpu.ops.fused_bound) to escape the per-loop
-    custom-call overhead (PERF.md). Must match the autodiff potential
-    numerically (tested in tests/test_fused_bound.py).
 
     Returns ``sample(init_params, key, data) -> (samples, stats)`` with
     samples leading axes ``(num_chains, num_samples)``.
@@ -722,19 +482,9 @@ def build_sampler(logprob_fn: Callable, example_params, cfg: NUTSConfig,
 
     @jax.jit
     def _run(flat0, key, data):
-        kernel_override = None
-        fused = None
-        if fused_builder is not None:
-            fused = fused_builder(data)
-            if not hasattr(fused, "num_chains"):
-                kernel_override, potential_vg = fused
-        elif potential_fn is not None:
-            def potential_vg(zvec):
-                return potential_fn(zvec, data)
-        else:
-            def potential_vg(zvec):
-                return jax.value_and_grad(
-                    lambda v: -logprob_fn(unravel(v), data))(zvec)
+        def potential_vg(zvec):
+            return jax.value_and_grad(
+                lambda v: -logprob_fn(unravel(v), data))(zvec)
 
         keys = jax.random.split(key, num_chains)
         jkeys = jax.random.split(jax.random.fold_in(key, 1), num_chains)
@@ -743,68 +493,20 @@ def build_sampler(logprob_fn: Callable, example_params, cfg: NUTSConfig,
             for k in jkeys])
         if mesh is not None:
             # GSPMD: pin the chain axis onto the device mesh; the vmapped
-            # chain computation then partitions across chips with no
+            # chain computation then partitions across devices with no
             # cross-chain communication
             from jax.sharding import NamedSharding, PartitionSpec as P
             sh = NamedSharding(mesh, P("chains"))
             z0s = jax.lax.with_sharding_constraint(z0s, sh)
             keys = jax.lax.with_sharding_constraint(keys, sh)
-        if fused is not None and hasattr(fused, "num_chains"):
-            mc_key = jax.random.fold_in(key, 2)
-            if mesh is not None and mesh.shape.get("chains", 1) > 1:
-                # fused x mesh composition (VERDICT r4 item 2): shard_map
-                # over the chains axis, each device advancing its LOCAL
-                # chain block with the chain-batched Pallas kernels —
-                # chains are independent, so there is no collective in the
-                # hot loop; the per-chip C=8 throughput optimum (PERF.md
-                # round 4) multiplies by the mesh size.
-                n_dev = mesh.shape["chains"]
-                if fused.num_chains * n_dev != num_chains:
-                    raise ValueError(
-                        f"mesh-composed multichain kernel: built for "
-                        f"{fused.num_chains} local chains x {n_dev} "
-                        f"devices != num_chains={num_chains}")
-                from jax.experimental.shard_map import shard_map
-                from jax.sharding import PartitionSpec as P
-
-                def local_run(z0s_local):
-                    dev = jax.lax.axis_index("chains")
-                    lk = jax.random.fold_in(mc_key, dev)
-                    return _multichain_fused_hmc(fused, z0s_local, lk, cfg,
-                                                 in_window, window_end)
-
-                spec = P("chains")
-                stat_specs = {k: spec for k in
-                              ("accept_prob", "diverging", "depth",
-                               "n_leapfrog", "energy", "step_size",
-                               "inv_mass")}
-                return shard_map(local_run, mesh=mesh, in_specs=(spec,),
-                                 out_specs=(spec, stat_specs),
-                                 check_rep=False)(z0s)
-            # single chip: ALL chains in one Pallas call chain
-            if fused.num_chains != num_chains:
-                raise ValueError(f"multichain fused kernel built for "
-                                 f"{fused.num_chains} chains, sampler has "
-                                 f"{num_chains}")
-            return _multichain_fused_hmc(fused, z0s, mc_key, cfg,
-                                         in_window, window_end)
-        if fused is not None and getattr(fused, "warm_chunk", None) \
-                is not None:
-            return jax.vmap(
-                lambda z0, k: _single_chain_fused(fused, z0, k, cfg,
-                                                  in_window,
-                                                  window_end))(z0s, keys)
         return jax.vmap(
             lambda z0, k: _single_chain(potential_vg, z0, k, cfg, in_window,
-                                        window_end,
-                                        kernel_override))(z0s, keys)
+                                        window_end))(z0s, keys)
 
     def sample(init_params, key, data=None):
         flat0, _ = jax.flatten_util.ravel_pytree(init_params)
         zs, stats = _run(flat0, key, data)      # (C, S, dim)
-        # fused kernels emit f32; under x64 the unravel expects the
-        # init-params dtype
-        samples = jax.vmap(jax.vmap(unravel))(zs.astype(flat0.dtype))
+        samples = jax.vmap(jax.vmap(unravel))(zs)
         return samples, stats
 
     return sample
@@ -826,17 +528,14 @@ def run_nuts(logprob_fn: Callable, init_params, key, cfg: NUTSConfig = NUTSConfi
 def build_sampler_chunked(logprob_fn: Callable, example_params,
                           cfg: NUTSConfig, num_chains: int = 1,
                           jitter_init: float = 0.1, mesh=None,
-                          chunk_size: int = 100,
-                          potential_fn: Callable | None = None,
-                          fused_builder: Callable | None = None):
+                          chunk_size: int = 100):
     """Like :func:`build_sampler`, but warmup and sampling run as a sequence
     of bounded-length program invocations of at most ``chunk_size``
     transitions each (three compiled executables total: init, warm chunk,
     sample chunk).
 
-    Why: (a) some runtimes kill single XLA executions past a wall-clock
-    limit (CLAUDE.md), (b) the host regains control between chunks —
-    progress reporting and sampler-state checkpointing become possible.
+    Why: the host regains control between chunks, so progress reporting and
+    sampler-state checkpointing (kill and resume) become possible.
     Warmup length is rounded UP to a multiple of ``chunk_size`` (extra
     adaptation steps are harmless). Sampling length rounds up too; excess
     draws are trimmed.
@@ -844,23 +543,8 @@ def build_sampler_chunked(logprob_fn: Callable, example_params,
     _, unravel = jax.flatten_util.ravel_pytree(example_params)
 
     def _make_pvg(data):
-        if fused_builder is not None:
-            f = fused_builder(data)
-            # chain-batched multichain objects and out-of-envelope Nones
-            # fall back to the plain potential (the mc path never gets here)
-            if f is not None and not hasattr(f, "num_chains"):
-                return f[1]
-        if potential_fn is not None:
-            return lambda zvec: potential_fn(zvec, data)
         return lambda zvec: jax.value_and_grad(
             lambda v: -logprob_fn(unravel(v), data))(zvec)
-
-    def _make_kernel(data):
-        if fused_builder is not None:
-            f = fused_builder(data)
-            if f is not None and not hasattr(f, "num_chains"):
-                return f[0]
-        return kernel
 
     n_warm_chunks = -(-cfg.num_warmup // chunk_size)
     warm_total = n_warm_chunks * chunk_size
@@ -910,10 +594,8 @@ def build_sampler_chunked(logprob_fn: Callable, example_params,
     def _warm_chunk(carry, in_w_c, w_end_c, data):
         pvg = _make_pvg(data)
 
-        kern = _make_kernel(data)
-
         def one(c):
-            warm = _make_warm_step(pvg, kern, cfg, c["z"].shape[0],
+            warm = _make_warm_step(pvg, kernel, cfg, c["z"].shape[0],
                                    c["z"].dtype)
 
             def step(s, inputs):
@@ -932,14 +614,13 @@ def build_sampler_chunked(logprob_fn: Callable, example_params,
     @jax.jit
     def _sample_chunk(carry, data):
         pvg = _make_pvg(data)
-        kern = _make_kernel(data)
 
         def one(c):
             eps = jnp.exp(c["da"].log_eps_avg)
 
             def step(s, _):
                 key, k_step = jax.random.split(s["key"])
-                z, U, g, stats = kern(pvg, s["z"], s["U"], s["g"], k_step,
+                z, U, g, stats = kernel(pvg, s["z"], s["U"], s["g"], k_step,
                                       eps, s["inv_mass"])
                 return {**s, "z": z, "U": U, "g": g, "key": key}, (z, stats)
 
@@ -947,246 +628,6 @@ def build_sampler_chunked(logprob_fn: Callable, example_params,
             return c, zs, stats
 
         return jax.vmap(one)(carry)
-
-    # ------------------------------------------------------------------
-    # Chain-batched fused kernels (ops.fused_multichain), host-dispatched:
-    # groups of at most ``chunk_size`` transitions per XLA execution so
-    # long big-N multichain schedules never exceed a single-execution
-    # wall-clock kill window (VERDICT r3 item 4). Key plumbing is
-    # bit-identical to the one-program driver (_multichain_fused_hmc) —
-    # padded no-op chunks do not advance the PRNG stream.
-    # ------------------------------------------------------------------
-    _mc_cache: dict = {}
-    _mc_mesh_composed = mesh is not None \
-        and dict(getattr(mesh, "shape", {})).get("chains", 1) > 1
-
-    def _mc_funcs(K: int):
-        if K in _mc_cache:
-            return _mc_cache[K]
-        gsz = max(1, chunk_size // K)
-
-        def _adv_key(key, k2, na):
-            # only chunks that actually run consume a split — keeps the
-            # stream identical to the unpadded one-program schedule
-            return jnp.where(na > 0, k2, key)
-
-        def mc_init_impl(flat0, key, data):
-            fused = fused_builder(data)
-            # LOCAL chain count: == num_chains on a single chip, the
-            # per-device block under the mesh composition (round 5)
-            c_loc = fused.num_chains
-            jkeys = jax.random.split(jax.random.fold_in(key, 1), c_loc)
-            z0s = jnp.stack([
-                flat0 + jitter_init * jax.random.normal(k, flat0.shape,
-                                                        flat0.dtype)
-                for k in jkeys])
-            key = jax.random.fold_in(key, 2)
-            U0, g0 = fused.potential(z0s)
-            C, dim = z0s.shape
-            inv_mass = jnp.ones((C, dim), z0s.dtype)
-            key, k_eps = jax.random.split(key)
-            eps = _find_reasonable_step_size_batched(
-                fused.potential, z0s, U0, g0, k_eps, inv_mass,
-                cfg.init_step_size)
-            le = jnp.log(eps)
-            zc = jnp.zeros((C,), z0s.dtype)
-            return dict(z=z0s, U=U0, g=g0, key=key,
-                        da=(le, le, zc, jnp.log(10.0) + le, zc),
-                        wf=(jnp.zeros((C, dim), z0s.dtype),
-                            jnp.zeros((C, dim), z0s.dtype), zc),
-                        inv_mass=inv_mass)
-
-        def mc_warm_impl(carry, in_w_g, w_end_g, n_act_g, data):
-            fused = fused_builder(data)
-
-            def step(c, inputs):
-                in_w_c, w_end_c, na = inputs
-                k2, k = jax.random.split(c["key"])
-                z, U, g, da, wf, im, _, _ = fused.warm_chunk(
-                    c["z"], c["U"], c["g"], k, c["da"], c["wf"],
-                    c["inv_mass"], in_w_c, w_end_c, na)
-
-                def keep(new, old):
-                    return jax.tree_util.tree_map(
-                        lambda a, b: jnp.where(na > 0, a, b), new, old)
-
-                return dict(z=keep(z, c["z"]), U=keep(U, c["U"]),
-                            g=keep(g, c["g"]),
-                            key=_adv_key(c["key"], k2, na),
-                            da=keep(da, c["da"]), wf=keep(wf, c["wf"]),
-                            inv_mass=keep(im, c["inv_mass"])), None
-
-            carry, _ = jax.lax.scan(step, carry, (in_w_g, w_end_g, n_act_g))
-            return carry
-
-        def mc_sample_impl(carry, s_act_g, data):
-            fused = fused_builder(data)
-            algo = getattr(fused, "algo", "hmc")
-
-            def step(c, na):
-                k2, k = jax.random.split(c["key"])
-                out = fused.sample_chunk(c["z"], c["U"], c["g"], k,
-                                         c["eps"], c["inv_mass"], na)
-                if algo == "nuts":
-                    zs, z1, U1, g1, acc, div, dep, nlv = out
-                else:
-                    zs, z1, U1, g1, acc, div = out
-                    dep = jnp.zeros_like(acc)
-                    nlv = jnp.full_like(acc, cfg.num_leapfrog)
-
-                def keep(new, old):
-                    return jnp.where(na > 0, new, old)
-
-                return ({**c, "z": keep(z1, c["z"]), "U": keep(U1, c["U"]),
-                         "g": keep(g1, c["g"]),
-                         "key": _adv_key(c["key"], k2, na)},
-                        (zs, acc, div, dep, nlv))
-
-            return jax.lax.scan(step, carry, s_act_g)
-
-        if not _mc_mesh_composed:
-            _mc_cache[K] = (gsz, jax.jit(mc_init_impl),
-                            jax.jit(mc_warm_impl), jax.jit(mc_sample_impl))
-            return _mc_cache[K]
-
-        # fused x mesh composition for the host-dispatched driver
-        # (round 5, VERDICT r4 item 2): every group call shard_maps over
-        # the mesh `chains` axis, each device advancing its LOCAL chain
-        # block with the chain-batched kernels. The per-device key rides
-        # in the carry with a leading device axis so it shards like the
-        # chain state; mc_init folds the device index in, so blocks
-        # evolve with distinct randomness.
-        from jax.experimental.shard_map import shard_map
-        from jax.sharding import PartitionSpec as P
-
-        spec = P("chains")
-        cspec = dict(z=spec, U=spec, g=spec, key=spec,
-                     da=(spec,) * 5, wf=(spec,) * 3, inv_mass=spec)
-        # the sampling carry drops da/wf and adds the frozen eps
-        sspec = dict(z=spec, U=spec, g=spec, key=spec, eps=spec,
-                     inv_mass=spec)
-
-        def _local_init(flat0, key, data):
-            dev = jax.lax.axis_index("chains")
-            c = mc_init_impl(flat0, jax.random.fold_in(key, dev), data)
-            return {**c, "key": c["key"][None]}       # (1, 2): device axis
-
-        def _local_warm(carry, in_w_g, w_end_g, n_act_g, data):
-            c = mc_warm_impl({**carry, "key": carry["key"][0]},
-                             in_w_g, w_end_g, n_act_g, data)
-            return {**c, "key": c["key"][None]}
-
-        def _local_sample(carry, s_act_g, data):
-            c, (zs, acc, div, dep, nlv) = mc_sample_impl(
-                {**carry, "key": carry["key"][0]}, s_act_g, data)
-            # zs (gsz, K*C_loc, dim): chains are the MINOR factor of axis 1
-            # — split them onto their own axis so shard_map concatenates
-            # device blocks on the chain axis, not inside the K blocks
-            zs = zs.reshape(zs.shape[0], -1, acc.shape[-1], zs.shape[-1])
-            return ({**c, "key": c["key"][None]},
-                    (zs, acc, div, dep, nlv))
-
-        mc_init = jax.jit(shard_map(
-            _local_init, mesh=mesh, in_specs=(P(), P(), P()),
-            out_specs=cspec, check_rep=False))
-        mc_warm = jax.jit(shard_map(
-            _local_warm, mesh=mesh,
-            in_specs=(cspec, P(), P(), P(), P()),
-            out_specs=cspec, check_rep=False))
-        _mc_sample_sm = jax.jit(shard_map(
-            _local_sample, mesh=mesh, in_specs=(sspec, P(), P()),
-            out_specs=(sspec, (P(None, None, "chains"),) + (P(
-                None, None, "chains"),) * 4), check_rep=False))
-
-        def mc_sample(carry, s_act_g, data):
-            c, (zs, acc, div, dep, nlv) = _mc_sample_sm(carry, s_act_g,
-                                                        data)
-            # back to the un-composed layout (gsz, K*C, dim)
-            zs = zs.reshape(zs.shape[0], -1, zs.shape[-1])
-            return c, (zs, acc, div, dep, nlv)
-
-        _mc_cache[K] = (gsz, mc_init, mc_warm, mc_sample)
-        return _mc_cache[K]
-
-    def _sample_mc(fobj, flat0, key, data, progress, ckpt_manager):
-        import numpy as _np
-        algo = _validate_multichain_cfg(fobj, cfg)
-        # the chain-batched kernels are f32-only (x64 CI envs arrive f64)
-        orig_dtype = flat0.dtype
-        flat0 = flat0.astype(jnp.float32)
-        K = fobj.chunk
-        gsz, mc_init, mc_warm, mc_sample = _mc_funcs(K)
-        S = cfg.num_samples
-
-        n_wchunks = -(-cfg.num_warmup // K)
-        n_wgroups = -(-n_wchunks // gsz)
-        total_wc = n_wgroups * gsz
-        pad = total_wc * K - cfg.num_warmup
-        in_w_mc = jnp.concatenate(
-            [jnp.asarray(in_w_np), jnp.zeros(pad, bool)]).reshape(
-                n_wgroups, gsz, K)
-        w_end_mc = jnp.concatenate(
-            [jnp.asarray(w_end_np), jnp.zeros(pad, bool)]).reshape(
-                n_wgroups, gsz, K)
-        n_act = jnp.clip(
-            cfg.num_warmup - jnp.arange(total_wc, dtype=jnp.int32) * K,
-            0, K).reshape(n_wgroups, gsz)
-
-        carry = mc_init(flat0, key, data)
-        start_group = 0
-        run_sig = {"chunk_size": chunk_size, "num_warmup": cfg.num_warmup,
-                   "num_samples": cfg.num_samples, "algorithm": cfg.algorithm,
-                   "num_chains": num_chains, "multichain_K": K}
-        if ckpt_manager is not None:
-            restored, meta = ckpt_manager.restore(carry)
-            if restored is not None:
-                saved_sig = {k: meta.get(k) for k in run_sig}
-                if saved_sig != run_sig:
-                    raise ValueError(
-                        f"checkpoint was written by a different sampler "
-                        f"configuration ({saved_sig} != {run_sig}) - "
-                        f"resuming would misalign the warmup schedule")
-                carry = restored
-                start_group = min(int(meta.get("chunk", 0)), n_wgroups)
-        for i in range(start_group, n_wgroups):
-            carry = mc_warm(carry, in_w_mc[i], w_end_mc[i], n_act[i], data)
-            jax.block_until_ready(carry["z"])
-            if ckpt_manager is not None:
-                ckpt_manager.save(i + 1, carry, {"chunk": i + 1, **run_sig})
-            if progress:
-                progress("warmup", min((i + 1) * gsz * K, cfg.num_warmup),
-                         cfg.num_warmup)
-
-        C, dim = carry["z"].shape
-        eps = jnp.exp(carry["da"][1])                       # (C,)
-        inv_mass = carry["inv_mass"]
-        scarry = dict(z=carry["z"], U=carry["U"], g=carry["g"],
-                      key=carry["key"], eps=eps, inv_mass=inv_mass)
-        n_schunks = -(-S // K)
-        n_sgroups = -(-n_schunks // gsz)
-        total_sc = n_sgroups * gsz
-        s_act = jnp.clip(S - jnp.arange(total_sc, dtype=jnp.int32) * K,
-                         0, K).reshape(n_sgroups, gsz)
-        outs = []
-        for i in range(n_sgroups):
-            scarry, out = mc_sample(scarry, s_act[i], data)
-            jax.block_until_ready(out[0])
-            outs.append(out)
-            if progress:
-                progress("sample", min((i + 1) * gsz * K, S), S)
-        zs, acc, div, dep, nlv = jax.tree_util.tree_map(
-            lambda *a: jnp.concatenate(a, axis=0), *outs)
-        zs = zs.reshape(total_sc * K, C, dim)[:S].transpose(1, 0, 2)
-        acc = acc.reshape(total_sc * K, C)[:S].T            # (C, S)
-        div = div.reshape(total_sc * K, C)[:S].T > 0.5
-        dep = dep.reshape(total_sc * K, C)[:S].T.astype(jnp.int32)
-        nlv = nlv.reshape(total_sc * K, C)[:S].T.astype(jnp.int32)
-        stats = {"accept_prob": acc, "diverging": div,
-                 "depth": dep, "n_leapfrog": nlv,
-                 "energy": jnp.zeros_like(acc),
-                 "step_size": eps, "inv_mass": inv_mass}
-        samples = jax.vmap(jax.vmap(unravel))(zs.astype(orig_dtype))
-        return samples, stats
 
     def sample(init_params, key, data=None, progress: Callable | None = None,
                ckpt_manager=None):
@@ -1196,20 +637,6 @@ def build_sampler_chunked(logprob_fn: Callable, example_params,
         granularity), pairing the two subsystems the reference lacks
         entirely (SURVEY §5.4: no checkpointing; §5.1: no progress)."""
         flat0, _ = jax.flatten_util.ravel_pytree(init_params)
-        if fused_builder is not None:
-            # probe with concrete data: a chain-batched multichain kernel
-            # object routes to the host-dispatched group driver
-            fobj = fused_builder(data)
-            if fobj is not None and hasattr(fobj, "num_chains"):
-                n_dev = (dict(getattr(mesh, "shape", {})).get("chains", 1)
-                         if _mc_mesh_composed else 1)
-                if fobj.num_chains * n_dev != num_chains:
-                    raise ValueError(
-                        f"multichain fused kernel built for "
-                        f"{fobj.num_chains} local chains x {n_dev} "
-                        f"devices, sampler has {num_chains}")
-                return _sample_mc(fobj, flat0, key, data, progress,
-                                  ckpt_manager)
         carry = _init(flat0, key, data)
         start_chunk = 0
         run_sig = {"chunk_size": chunk_size, "num_warmup": cfg.num_warmup,

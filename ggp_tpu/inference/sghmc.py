@@ -53,7 +53,7 @@ class SGHMCConfig:
     resample_momentum_every: int = 50
     adapt_mass: bool = False        # Welford diagonal preconditioner (opt-in:
                                     # helps scale-heterogeneous targets, can
-                                    # slow well-scaled ones - see PERF.md)
+                                    # slow well-scaled ones)
     control_variate: bool = False   # SVRG anchor gradient (needs
                                     # full_logpost_fn; see run_sghmc)
     anchor_refresh_every: int = 200  # full-gradient anchor refresh period

@@ -1,6 +1,6 @@
-"""Functional covariance kernels for TPU.
+"""Functional covariance kernels.
 
-TPU-native replacement for the gpytorch kernel stack the reference leans on
+Replacement for the gpytorch kernel stack the reference leans on
 (reference: models/sgpr.py:35-37 builds ScaleKernel(RBFKernel(ard)), and the
 CO2 composite at experiments/co2_baseline.py:89-98 sums four scaled
 components). Design differs deliberately from gpytorch's stateful modules:
@@ -13,8 +13,7 @@ components). Design differs deliberately from gpytorch's stateful modules:
   pymc3 side samples in log space the same way,
   experiments/co2_bayesian_sgpr_hmc.py:107-144),
 * Gram construction is expressed with matmul-dominant ops (the x^2+z^2-2xz
-  trick) so XLA maps it onto the MXU; the fused Pallas path (streaming VFE
-  statistics that never materialise Knm) lives in ``ggp_tpu.ops.pallas_vfe``.
+  trick) so XLA maps the cross term onto one matrix product.
 """
 
 from __future__ import annotations
@@ -48,14 +47,14 @@ def _softplus(x):
 
 
 def sq_dist(x1: jnp.ndarray, x2: jnp.ndarray) -> jnp.ndarray:
-    """Pairwise squared Euclidean distances via one MXU matmul.
+    """Pairwise squared Euclidean distances via one matmul.
 
     ||a-b||^2 = ||a||^2 + ||b||^2 - 2 a.b, clamped at 0 against f32
     cancellation.
     """
     n1 = jnp.sum(x1 * x1, axis=-1, keepdims=True)          # (N1, 1)
     n2 = jnp.sum(x2 * x2, axis=-1, keepdims=True).T        # (1, N2)
-    cross = x1 @ x2.T                                      # MXU
+    cross = x1 @ x2.T
     return jnp.maximum(n1 + n2 - 2.0 * cross, 0.0)
 
 

@@ -14,8 +14,8 @@ jitted ``sgpr_elbo``:
 
 * the NUTS sampler is compiled ONCE with Z as a traced argument
   (``build_sampler``) — re-sampling at a new Z costs zero recompiles;
-* the Z-update phase vmaps the ELBO over all S trace samples (batched
-  M x M Cholesky on the MXU) instead of a Python loop over samples
+* the Z-update phase vmaps the ELBO over all S trace samples (one batched
+  M x M Cholesky) instead of a Python loop over samples
   (models/bayesian_sgpr_hmc.py:123-134), and runs ``steps_per_round`` Adam
   steps in one ``lax.scan``.
 """
@@ -27,7 +27,6 @@ from typing import Optional, Sequence
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 import optax
 
 from ..config import default_jitter
@@ -90,142 +89,6 @@ class BayesianSparseGPR_HMC:
                                     self.train_y, self.jitter)
         return ll + log_prior(self.prior_tree, hypers)
 
-    def _fused_potential(self):
-        """Custom-call-free potential for the default Scale(RBF-ARD) target
-        (ggp_tpu.ops.fused_bound) — removes the ~80us/leapfrog custom-call
-        floor (PERF.md). None when the model configuration falls outside the
-        fused envelope (then the autodiff potential is used)."""
-        import os
-        from ..ops.fused_bound import (fused_potential_is_eligible,
-                                       make_rbf_vfe_potential,
-                                       prior_spec_of_tree)
-        if os.environ.get("GGP_FAST_ELBO"):      # explicit override wins
-            return None
-        if not fused_potential_is_eligible(self.kernel, self.likelihood,
-                                           self.prior_tree):
-            return None
-        return make_rbf_vfe_potential(
-            self.train_x, self.train_y, self.jitter,
-            prior_spec=prior_spec_of_tree(self.prior_tree))
-
-    def _fused_transition(self, max_depth, num_chains=1):
-        """Pallas whole-transition NUTS kernel (ops.fused_nuts) — the default
-        hot path on TPU for the Scale(RBF-ARD) target AND (round 5, VERDICT
-        r4 item 6) the Mauna Loa CO2 composite target
-        (kernels/composite.py:co2_kernel x Gaussian x 11-leaf prior tree):
-        one kernel per NUTS transition instead of one custom call per
-        leapfrog (PERF.md's ~80us/loop-iteration floor). Disable with
-        ``GGP_FUSED_TRANSITION=0``."""
-        import os
-
-        import jax as _jax
-
-        from ..ops.fused_bound import (co2_fused_spec,
-                                       fused_structure_matches,
-                                       prior_spec_of_tree)
-        from ..ops.fused_nuts import (MAX_N_RESIDENT, MAX_M,
-                                      fused_nuts_supported, make_fused_nuts)
-        if os.environ.get("GGP_FUSED_TRANSITION", "1") == "0":
-            return None
-        if os.environ.get("GGP_FAST_ELBO"):
-            return None
-        if _jax.default_backend() != "tpu" or self.mesh is not None:
-            return None
-        if num_chains != 1 and not os.environ.get("GGP_FUSED_MULTICHAIN"):
-            # vmap-of-pallas serialises chains through a grid dim; the XLA
-            # path batches the linalg across chains (PERF.md: 8-chain HMC
-            # 1076 ESS/s) — keep it for multi-chain unless opted in
-            return None
-        n, d = self.train_x.shape
-        if fused_structure_matches(self.kernel, self.likelihood,
-                                   self.prior_tree):
-            if not fused_nuts_supported(n, d, self.Z.shape[0]):
-                return None
-            return make_fused_nuts(self.train_x, self.train_y, self.jitter,
-                                   max_depth=max_depth,
-                                   prior_spec=prior_spec_of_tree(
-                                       self.prior_tree))
-        co2 = co2_fused_spec(self.kernel, self.likelihood, self.prior_tree)
-        if co2 is None:
-            return None
-        noise_comp, pspec = co2
-        if d != 1 or n > MAX_N_RESIDENT or self.Z.shape[0] > MAX_M:
-            return None
-        return make_fused_nuts(self.train_x, self.train_y, self.jitter,
-                               max_depth=max_depth,
-                               target=f"co2_{noise_comp}",
-                               prior_spec=pspec)
-
-    def _mesh_chain_devices(self):
-        """Devices on the mesh ``chains`` axis (1 when no mesh). None when
-        the fused kernels cannot compose with this mesh: a data-sharded
-        mesh (the kernels consume replicated X/y) or a mesh without a
-        chains axis."""
-        if self.mesh is None:
-            return 1
-        names = getattr(self.mesh, "axis_names", ())
-        if "data" in names and self.mesh.shape["data"] > 1:
-            return None
-        if "chains" not in names:
-            return None
-        return self.mesh.shape["chains"]
-
-    def _fused_multichain(self, num_chains, num_leapfrog, algorithm="hmc",
-                          max_depth=8):
-        """Chain-batched fused sampling (ops.fused_multichain) — the
-        single-chip throughput path (VERDICT r2 item 3): C lock-step chains
-        per Pallas call, factorisations batched chain-minor so the
-        op-issue-bound panel loops are shared by all chains (4x the XLA
-        batched path per potential eval, PERF.md round 3). Default-on on
-        TPU for 2..8 chains on the Scale(RBF-ARD) target — fixed-leapfrog
-        HMC since round 3 start, lock-step multinomial NUTS since round 3
-        (GGP_FUSED_MC_NUTS=0 keeps NUTS chains on the XLA vmapped path);
-        GGP_FUSED_TRANSITION=0 disables all fused paths.
-
-        Round 5 (VERDICT r4 item 2): a mesh with a ``chains`` axis no
-        longer disables the fused path — the kernel is built for the
-        LOCAL chain block (num_chains / mesh devices) and build_sampler
-        shard_maps it over the axis, so >8 chains scale across chips at
-        the per-chip fused rate instead of dropping to the ~3x-slower XLA
-        potential. ``GGP_FUSED_MESH_INTERPRET=1`` lets CI validate the
-        composition on a CPU mesh with interpret-mode kernels."""
-        import os
-
-        from ..ops.fused_bound import (fused_structure_matches,
-                                       prior_spec_of_tree)
-        from ..ops.fused_multichain import (fused_multichain_supported,
-                                            make_fused_hmc_multichain)
-        if os.environ.get("GGP_FUSED_TRANSITION", "1") == "0":
-            return None
-        if algorithm == "nuts" \
-                and os.environ.get("GGP_FUSED_MC_NUTS", "1") == "0":
-            return None
-        if os.environ.get("GGP_FAST_ELBO"):
-            return None
-        interpret = jax.default_backend() != "tpu"
-        if interpret and not os.environ.get("GGP_FUSED_MESH_INTERPRET"):
-            return None
-        n_dev = self._mesh_chain_devices()
-        if n_dev is None or num_chains % n_dev != 0:
-            return None
-        c_local = num_chains // n_dev
-        if not fused_structure_matches(self.kernel, self.likelihood,
-                                       self.prior_tree):
-            return None
-        n, d = self.train_x.shape
-        if not fused_multichain_supported(n, d, self.Z.shape[0],
-                                          c_local, target="vfe"):
-            return None
-        return make_fused_hmc_multichain(self.train_x, self.train_y,
-                                         self.jitter,
-                                         num_chains=c_local,
-                                         num_leapfrog=num_leapfrog,
-                                         algo=algorithm,
-                                         max_depth=max_depth,
-                                         interpret=interpret,
-                                         prior_spec=prior_spec_of_tree(
-                                             self.prior_tree))
-
     def _get_sampler(self, num_warmup, num_samples, num_chains, max_depth=8,
                      algorithm="nuts", num_leapfrog=10, chunk_size=None):
         key = (num_warmup, num_samples, num_chains, max_depth, algorithm,
@@ -234,32 +97,14 @@ class BayesianSparseGPR_HMC:
             cfg = NUTSConfig(num_warmup=num_warmup, num_samples=num_samples,
                              max_depth=max_depth, algorithm=algorithm,
                              num_leapfrog=num_leapfrog)
-            if num_chains > 1 and algorithm in ("hmc", "nuts"):
-                # chain-batched kernels plug into BOTH drivers: one-program
-                # (build_sampler) and host-dispatched groups
-                # (build_sampler_chunked, round 4 — bounded per-execution
-                # wall so big-N multichain schedules survive the link's
-                # execution kill window)
-                fused = self._fused_multichain(num_chains, num_leapfrog,
-                                               algorithm, max_depth)
-                if fused is None and algorithm == "nuts":
-                    fused = self._fused_transition(max_depth, num_chains)
-            elif algorithm == "nuts":
-                fused = self._fused_transition(max_depth, num_chains)
-            else:
-                fused = None
-            pot = None if fused is not None else self._fused_potential()
             if chunk_size:
                 self._samplers[key] = build_sampler_chunked(
                     self._logpost, self.hypers, cfg, num_chains,
-                    mesh=self.mesh, chunk_size=chunk_size, potential_fn=pot,
-                    fused_builder=fused)
+                    mesh=self.mesh, chunk_size=chunk_size)
             else:
                 self._samplers[key] = build_sampler(self._logpost, self.hypers,
                                                     cfg, num_chains,
-                                                    mesh=self.mesh,
-                                                    potential_fn=pot,
-                                                    fused_builder=fused)
+                                                    mesh=self.mesh)
         return self._samplers[key]
 
     def sample_hypers(self, num_warmup, num_samples, num_chains=1, key=None,
@@ -267,15 +112,15 @@ class BayesianSparseGPR_HMC:
                       ckpt_manager=None):
         """Draw a fresh hyper trace at the current Z.
 
-        ``algorithm="hmc"`` with ``num_chains=8``+ is the throughput
-        configuration on a single chip (PERF.md: batched fixed-leapfrog
-        chains amortise the per-iteration factorization overhead ~8x).
+        ``algorithm="hmc"`` with ``num_chains=8`` is the multi-chain
+        throughput configuration: fixed-leapfrog chains advance in lock
+        step, so their factorizations batch.
 
         ``ckpt_manager`` (requires ``chunk_size``): a
         utils.checkpoint.CheckpointManager — the sampler carry checkpoints
         after every warmup chunk and resumes from the latest checkpoint,
-        so a link-killed long schedule continues instead of restarting
-        (VERDICT r4 item 4; the chunked driver's wiring, inference/hmc.py).
+        so a killed long schedule continues instead of restarting (the
+        chunked driver's wiring, inference/hmc.py).
         """
         if key is None:
             key = jax.random.PRNGKey(0)
@@ -304,18 +149,6 @@ class BayesianSparseGPR_HMC:
     # Phase A: joint ML-II warm start (reference: models/bayesian_sgpr_hmc.py:104-115)
     # ------------------------------------------------------------------
     def warm_start(self, num_steps=500, lr=0.01):
-        if self._fused_zopt_ok(need_trace=False):
-            # same fused whole-chunk trainer as SparseGPR.train_model but
-            # with this phase's optax chain (clip_by_global_norm(10.0))
-            from .sgpr import _run_adam_fused
-            params = {**self.hypers, "Z": self.Z}
-            params, losses = _run_adam_fused(
-                self.train_x, self.train_y, self.jitter, params,
-                num_steps, lr, 1e-4, 10.0,
-                data_scale=float(np.max(np.abs(np.asarray(self.train_x)))))
-            self.Z = params.pop("Z")
-            self.hypers = params
-            return losses
         params = {**self.hypers, "Z": self.Z}
         optimizer = optax.chain(optax.zero_nans(),
                                 optax.clip_by_global_norm(10.0),
@@ -332,46 +165,11 @@ class BayesianSparseGPR_HMC:
     # ------------------------------------------------------------------
     def optimize_Z(self, num_steps=200, lr=0.01):
         assert self.trace is not None, "sample_hypers first"
-        if self._fused_zopt_ok():
-            # whole-chunk Pallas Z-trainer: all S trace evaluations of the
-            # bound + the Z adjoint + Adam in-kernel (ops/fused_sgpr.
-            # make_fused_z_adam); same zero_nans+adam trajectory as the
-            # XLA path (tests/test_fused_sgpr.py)
-            self.Z, losses = _adam_Z_fused(
-                self.train_x, self.train_y, self.jitter, self.Z,
-                self.trace, num_steps, lr)
-            return losses
         optimizer = optax.chain(optax.zero_nans(), optax.adam(lr))
         self.Z, losses = _adam_Z(self.kernel, self.train_x, self.train_y,
                                  self.jitter, self.Z, self.trace, optimizer,
                                  num_steps)
         return losses
-
-    def _fused_zopt_ok(self, need_trace: bool = True) -> bool:
-        """Gate for the fused training chunk kernels (optimize_Z and
-        warm_start): same structural conditions as the fused sampler
-        target plus the envelope (both kernels stream X/y from HBM past
-        2048 rows, up to 16384). GGP_FUSED_ZOPT=0 disables both."""
-        import os
-
-        import jax as _jax
-
-        from ..ops.fused_bound import fused_structure_matches
-        if os.environ.get("GGP_FUSED_ZOPT", "1") == "0":
-            return False
-        if os.environ.get("GGP_FAST_ELBO"):
-            return False
-        if _jax.default_backend() != "tpu" or self.mesh is not None:
-            return False
-        if not fused_structure_matches(self.kernel, self.likelihood,
-                                       self.prior_tree):
-            return False
-        n, d = self.train_x.shape
-        if self.Z.shape[0] > 512 or d > 125:
-            return False
-        if need_trace and self.trace["log_noise"].shape[0] > 512:
-            return False
-        return n <= 16384
 
     # ------------------------------------------------------------------
     # Orchestration
@@ -468,7 +266,7 @@ class BayesianSparseGPR_HMC:
                           num_chains: int = 1, key=None, chunk_size=None):
         """One-shot NUTS at fixed Z (reference: train_fixed_model,
         models/bayesian_sgpr_hmc.py:160-180). ``chunk_size`` bounds each
-        program invocation's length (CLAUDE.md runtime limit)."""
+        program invocation's length (host control between chunks)."""
         return self.sample_hypers(num_warmup, num_samples, num_chains, key,
                                   chunk_size=chunk_size)
 
@@ -490,8 +288,8 @@ class BayesianSparseGPR_HMC:
                                 include_noise=include_noise)
 
         # chunked map: a full vmap over S samples materialises S x (M x N)
-        # gram intermediates at once (OOMs the chip for big-M composite
-        # kernels); batch_size bounds peak memory
+        # gram intermediates at once (exhausts device memory for big-M
+        # composite kernels); batch_size bounds peak memory
         means, vars_ = jax.jit(
             lambda tr: jax.lax.map(one, tr, batch_size=8))(self.trace)
         ok = jnp.all(jnp.isfinite(means), axis=-1) & \
@@ -557,72 +355,3 @@ def _adam_Z(kernel, X, y, jitter, Z, trace, optimizer, num_steps):
 
     (Z, _), losses = jax.lax.scan(step, (Z, opt_state), None, length=num_steps)
     return Z, losses
-
-
-_ZOPT_S_CAP = 512      # trace-rows cap compiled into the fused Z kernel
-_ZOPT_K_MAX = 200      # Adam steps per Pallas call
-_zopt_runners: dict = {}
-
-
-def _adam_Z_fused(X, y, jitter, Z, trace, num_steps, lr):
-    """Whole-chunk fused Z optimisation: K<=200 Adam steps per Pallas call,
-    each step evaluating the bound + Z adjoint over ALL S trace hypers
-    in-kernel (ops/fused_sgpr.make_fused_z_adam). Same objective and
-    zero_nans+adam trajectory as :func:`_adam_Z`.
-
-    Round 4 (VERDICT r3 item 5): the kernel is compiled ONCE per
-    (n, M, d, lr, n_calls) at the (S, K) caps; the actual trace size and
-    step count are runtime scalars, so the alternating scheduler's
-    (tune=100,n=20)/(tune=25,n=10) rounds share one Mosaic executable."""
-    from ..ops.fused_sgpr import make_fused_z_adam
-
-    n, d = X.shape
-    M = Z.shape[0]
-    dt = jnp.float32
-    S = trace["log_noise"].shape[0]
-    Mp = max(128, -(-M // 128) * 128)
-    Np = -(-n // 8) * 8
-    thetas = jnp.zeros((_ZOPT_S_CAP, 128), dt)
-    thetas = thetas.at[:S, :d].set(
-        trace["kernel"]["base"]["log_lengthscale"].astype(dt))
-    thetas = thetas.at[:S, d].set(
-        trace["kernel"]["log_outputscale"].astype(dt))
-    thetas = thetas.at[:S, d + 1].set(trace["log_noise"].astype(dt))
-    Zp = jnp.zeros((Mp, 128), dt).at[:M, :d].set(Z.astype(dt))
-    Xp = jnp.zeros((Np, 128), dt).at[:n, :d].set(X.astype(dt))
-    yp = jnp.zeros((Np, 1), dt).at[:n, 0].set(y.astype(dt))
-    mz = jnp.zeros((Mp, 128), dt)
-    vz = jnp.zeros((Mp, 128), dt)
-
-    num_steps = int(num_steps)
-    n_calls = max(1, -(-num_steps // _ZOPT_K_MAX))
-    # static max|X| for the streaming core's inv_ls cap (ADVICE r4)
-    data_scale = float(np.max(np.abs(np.asarray(X))))
-    rkey = (n, M, d, float(lr), float(jitter), n_calls, data_scale)
-    if rkey not in _zopt_runners:
-        chunk = make_fused_z_adam(n, M, d, _ZOPT_S_CAP, jitter,
-                                  steps_per_call=_ZOPT_K_MAX, lr=lr,
-                                  data_scale=data_scale)
-
-        @jax.jit
-        def run(Zp, mz, vz, thetas, Xp, yp, s_act, k_acts, t0s):
-            def body(carry, inp):
-                t0, ka = inp
-                Zc, mzc, vzc = carry
-                Zc, mzc, vzc, losses = chunk(Zc, mzc, vzc, thetas, Xp, yp,
-                                             t0, s_act, ka)
-                return (Zc, mzc, vzc), losses
-
-            (Zp, mz, vz), losses = jax.lax.scan(body, (Zp, mz, vz),
-                                                (t0s, k_acts))
-            return Zp, losses.reshape(-1)
-
-        _zopt_runners[rkey] = run
-
-    t0s = jnp.arange(n_calls, dtype=dt) * _ZOPT_K_MAX
-    k_acts = jnp.clip(num_steps - jnp.arange(n_calls) * _ZOPT_K_MAX,
-                      0, _ZOPT_K_MAX).astype(dt)
-    Zp, losses = _zopt_runners[rkey](Zp, mz, vz, thetas, Xp, yp,
-                                     jnp.asarray(S, dt), k_acts, t0s)
-    # inactive tail steps (only in the final call) emit zero-padded losses
-    return Zp[:M, :d].astype(X.dtype), losses[:num_steps]

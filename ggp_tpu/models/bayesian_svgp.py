@@ -16,7 +16,7 @@ Prior p(log theta) = N(0, sigma0^2 I) with sigma0^2 = 0.01
 (models/bayesian_svgp.py:116-117). The ELBO averages the data term over
 ``num_hyper_samples``=5 reparameterised draws per step
 (models/bayesian_svgp.py:159-167) — here that average is a vmap, so the five
-whitened-conditional Choleskys run as one batched MXU factorisation.
+whitened-conditional Choleskys run as one batched factorisation.
 
 KL counting parity (round-3 re-audit): the reference adds KL(q(theta))/n
 per minibatch via a gpytorch AddedLossTerm (models/bayesian_svgp.py:73-84)
@@ -25,14 +25,14 @@ the SAME weighting as our single full-ELBO KL (ours is the reference's
 scaled by N), so there is no counting deviation to quantify; optimisation
 differs only by the overall loss scale absorbed into the learning rate.
 
-Deliberate deviation (quantified, PERF.md round 3): the reference's
+Deliberate deviation: the reference's
 predictive feeds softplus(s) back through its exp-based forward, i.e.
 theta = exp(softplus(s)) (models/bayesian_svgp.py:199 feeding :121-124),
 inconsistent with training's theta = exp(s). We default to exp in both
 places; ``mixture_posterior_predictive(..., transform="ref_softplus")``
-reproduces the reference behavior exactly. Measured on the 1-D synthetic
-benchmark: NLPD -0.13 (exp) vs +1.55 (ref_softplus), RMSE 0.20 vs 1.17 —
-the exp-consistent predictive is the defensible choice.
+reproduces the reference behavior exactly. On the 1-D synthetic benchmark
+the reference transform is far worse in both NLPD and RMSE — the
+exp-consistent predictive is the defensible choice.
 """
 
 from __future__ import annotations
@@ -151,26 +151,6 @@ class BayesianStochasticVariationalGP:
             "hyper_L_vec": vec,
         }
 
-    def _fused_bsvi_ok(self, batch_size) -> bool:
-        """Gate for the whole-epoch Pallas BSVGP kernel (ops/fused_svi):
-        Scale(RBF-ARD) x Gaussian, M <= 512, batch <= 512, S <= 8, on TPU.
-        GGP_FUSED_BSVGP=0 disables."""
-        import os
-        if os.environ.get("GGP_FUSED_BSVGP", "1") == "0":
-            return False
-        if jax.default_backend() != "tpu":
-            return False
-        from ..kernels.base import RBF, Scale
-        if not (isinstance(self.kernel, Scale)
-                and type(self.kernel.base) is RBF and self.kernel.base.ard):
-            return False
-        if type(self.likelihood) is not GaussianLikelihood:
-            return False
-        M = self.params["Z"].shape[0]
-        d = self.train_x.shape[-1]
-        return (M <= 512 and batch_size <= 512 and d + 2 <= 126
-                and self.num_hyper_samples <= 8)
-
     def train_model(self, optimizer=None, num_epochs: int = 100,
                     batch_size: int = 200, lr: float = 0.01, key=None,
                     verbose: bool = False):
@@ -179,19 +159,6 @@ class BayesianStochasticVariationalGP:
         N = self.train_x.shape[0]
         batch_size = min(batch_size, N)
         steps = N // batch_size
-        if optimizer is None and self._fused_bsvi_ok(batch_size):
-            # whole-epoch Pallas kernel: every step's S hyper-sample SVGP
-            # data terms + reparameterisation adjoints + Adam in-kernel
-            # (ops/fused_svi.make_fused_bsvgp); same optax-adam trajectory
-            # as the XLA path given the same eps (tests/test_fused_svi.py)
-            self.params, losses = _run_bsvi_fused(
-                self.kernel, self.train_x, self.train_y, self.jitter,
-                self.params, num_epochs, batch_size, steps,
-                self.num_hyper_samples, self.prior_var, lr, key)
-            if verbose:
-                print(f"BayesianSVGP(fused): epoch loss "
-                      f"{float(losses[0]):.3f} -> {float(losses[-1]):.3f}")
-            return losses
         if optimizer is None:
             optimizer = optax.adam(lr)
         self.params, losses = _run_bsvi(
@@ -214,8 +181,8 @@ class BayesianStochasticVariationalGP:
         transform theta = exp(s)) or "ref_softplus", which reproduces the
         reference's inconsistency exactly: it feeds softplus(s) back through
         the exp-based forward, i.e. theta = exp(softplus(s))
-        (models/bayesian_svgp.py:199 feeding :121-124). Kept for the A/B
-        quantification of this deviation (PERF.md round 3)."""
+        (models/bayesian_svgp.py:199 feeding :121-124). Kept for A/B
+        comparisons of this deviation."""
         if key is None:
             key = jax.random.PRNGKey(1)
         test_x = jnp.asarray(test_x)
@@ -282,7 +249,8 @@ def _run_bsvi(kernel, likelihood, X, y, jitter, params, optimizer, num_epochs,
                                    num_hyper_samples, prior_var, jitter)
 
             val, g = jax.value_and_grad(loss)(p)
-            # zero_nans-style guard (matches the fused kernel's Adam)
+            # zero_nans-style guard: a non-finite step must not poison
+            # optimizer state
             g = jax.tree_util.tree_map(
                 lambda a: jnp.where(jnp.isfinite(a), a, 0.0), g)
             updates, s = optimizer.update(g, s, p)
@@ -294,70 +262,3 @@ def _run_bsvi(kernel, likelihood, X, y, jitter, params, optimizer, num_epochs,
     ekeys = jax.random.split(key, num_epochs)
     (params, _), losses = jax.lax.scan(epoch, (params, opt_state), ekeys)
     return params, losses
-
-
-@partial(jax.jit, static_argnums=(0, 3, 5, 6, 7, 8, 9, 10))
-def _run_bsvi_fused(kernel, X, y, jitter, params, num_epochs, batch_size,
-                    steps_per_epoch, S, prior_var, lr, key):
-    """Whole-epoch fused BayesianSVGP SVI: same key schedule as
-    :func:`_run_bsvi` (per-epoch permutation key + per-step eps keys) with
-    every Adam step in-kernel (ops/fused_svi.make_fused_bsvgp). Gaussian
-    likelihood only; eps drawn in f32 (the kernel dtype)."""
-    from ..ops.fused_svi import make_fused_bsvgp
-
-    N = X.shape[0]
-    M = params["q_mu"].shape[0]
-    d = X.shape[-1]
-    h = d + 2
-    dt = jnp.float32
-    nbp = -(-batch_size // 8) * 8
-    Sp = 8
-    chunk = make_fused_bsvgp(N, batch_size, M, d, S, prior_var, jitter,
-                             steps_per_call=steps_per_epoch, lr=lr)
-
-    il = jnp.tril_indices(h)
-    Mp = max(128, -(-M // 128) * 128)
-    pp = {
-        "hmu": jnp.zeros((1, 128), dt).at[0, :h].set(
-            params["hyper_mu"].astype(dt)),
-        "Lraw": jnp.zeros((128, 128), dt).at[il].set(
-            params["hyper_L_vec"].astype(dt)),
-        "Z": jnp.zeros((Mp, 128), dt).at[:M, :d].set(
-            params["Z"].astype(dt)),
-        "q_mu": jnp.zeros((Mp, 1), dt).at[:M].set(
-            params["q_mu"].astype(dt)),
-        "q_raw": jnp.zeros((Mp, Mp), dt).at[:M, :M].set(
-            params["q_sqrt_raw"][0].astype(dt)),
-    }
-    mm = {k: jnp.zeros_like(v) for k, v in pp.items()}
-    vv = {k: jnp.zeros_like(v) for k, v in pp.items()}
-
-    def epoch(carry, ekey):
-        pp, mm, vv, t0 = carry
-        pkey, skey = jax.random.split(ekey)
-        perm = jax.random.permutation(pkey, N)[:steps_per_epoch * batch_size]
-        idx = perm.reshape(steps_per_epoch, batch_size)
-        rows = jnp.zeros((steps_per_epoch, nbp, 128), dt)
-        rows = rows.at[:, :batch_size, :d].set(X[idx].astype(dt))
-        rows = rows.at[:, :batch_size, 127].set(y[idx].astype(dt))
-        slab = rows.reshape(steps_per_epoch * nbp, 128)
-        skeys = jax.random.split(skey, steps_per_epoch)
-        eps = jax.vmap(lambda k: jax.random.normal(k, (S, h), dt))(skeys)
-        erows = jnp.zeros((steps_per_epoch, Sp, 128), dt)
-        erows = erows.at[:, :S, :h].set(eps)
-        eps_slab = erows.reshape(steps_per_epoch * Sp, 128)
-        pp, mm, vv, losses = chunk(pp, mm, vv, slab, eps_slab, t0)
-        return (pp, mm, vv, t0 + steps_per_epoch), jnp.mean(losses)
-
-    ekeys = jax.random.split(key, num_epochs)
-    (pp, _, _, _), losses = jax.lax.scan(
-        epoch, (pp, mm, vv, jnp.asarray(0.0, dt)), ekeys)
-    out = {
-        "kernel": params["kernel"],
-        "Z": pp["Z"][:M, :d].astype(X.dtype),
-        "q_mu": pp["q_mu"][:M].astype(X.dtype),
-        "q_sqrt_raw": pp["q_raw"][:M, :M][None].astype(X.dtype),
-        "hyper_mu": pp["hmu"][0, :h].astype(X.dtype),
-        "hyper_L_vec": pp["Lraw"][il].astype(X.dtype),
-    }
-    return out, losses

@@ -6,8 +6,8 @@ sig_n ~ HalfCauchy(1) (models/gpr_hmc.py:47-53), NUTS single chain
 (models/gpr_hmc.py:57), mixture predictive over the trace with a noise-floor
 clamp sig_n^2 < 1e-4 -> 0.01 (models/gpr_hmc.py:99-100).
 
-TPU-native differences: the marginal-likelihood target and its gradient are
-one jitted function (N x N Cholesky on MXU); chains are vmapped; the whole
+Differences by design: the marginal-likelihood target and its gradient are
+one jitted function (one N x N Cholesky); chains are vmapped; the whole
 mixture predictive is one vmap over trace samples instead of a Python loop
 with try/except PSD filtering (models/gpr_hmc.py:113-117) — non-finite
 components are masked instead.
@@ -86,43 +86,6 @@ class GPR_HMC:
         ll = gp_marginal_loglik(self.kernel, hypers, X, y, self.jitter)
         return ll + log_prior(self.prior_tree, hypers)
 
-    def _fused_transition(self, max_depth, num_chains=1):
-        """Whole-transition/whole-chunk Pallas NUTS with the DENSE marginal
-        potential in-kernel (ops.fused_nuts target="gpr") — extends the
-        fused-kernel speedup to the GPR+HMC row of the sampler-runtime
-        matrix (VERDICT r2 item 4). Default-on on TPU for the
-        Scale(RBF-ARD) x Gaussian x prior_tree_rbf() target at N <= 512;
-        GGP_FUSED_TRANSITION=0 disables."""
-        import os
-
-        from ..ops.fused_bound import (fused_structure_matches,
-                                       prior_spec_of_tree)
-        from ..ops.fused_nuts import MAX_N_DENSE, make_fused_nuts
-        if os.environ.get("GGP_FUSED_TRANSITION", "1") == "0":
-            return None
-        if jax.default_backend() != "tpu" or self.mesh is not None:
-            return None
-        if num_chains != 1 and not os.environ.get("GGP_FUSED_MULTICHAIN"):
-            return None       # see bayesian_sgpr_hmc._fused_transition
-        if not fused_structure_matches(self.kernel, self.likelihood,
-                                       self.prior_tree):
-            return None
-        n, d = self.train_x.shape
-        if n > MAX_N_DENSE or d + 2 > 128:
-            return None
-        # block=64 panels measured fastest for the (512,512) factorisation
-        # (189 vs 221/243 us/eval at 32/128 — fewer panel iterations, mini
-        # tiles still issue-bound, PERF.md round 3)
-        builder = make_fused_nuts(self.train_x, self.train_y, self.jitter,
-                                  max_depth=max_depth, target="gpr",
-                                  block=64,
-                                  prior_spec=prior_spec_of_tree(
-                                      self.prior_tree))
-        if builder is None:
-            return None
-        dummy_z = jnp.zeros((1, d), self.train_x.dtype)
-        return lambda data: builder(dummy_z)      # data = (X, y); no Z
-
     def train_model(self, num_warmup: int = 50, num_samples: int = 10,
                     num_chains: int = 1, key=None, max_depth: int = 8):
         """NUTS over (log ls, log sig_f^2, log sig_n^2). Reference defaults
@@ -134,8 +97,7 @@ class GPR_HMC:
                          max_depth=max_depth)
         if self._sampler is None or self._sampler_cfg != (cfg, num_chains):
             self._sampler = build_sampler(
-                self._logpost, self.params, cfg, num_chains, mesh=self.mesh,
-                fused_builder=self._fused_transition(max_depth, num_chains))
+                self._logpost, self.params, cfg, num_chains, mesh=self.mesh)
             self._sampler_cfg = (cfg, num_chains)
         samples, stats = self._sampler(self.params, key,
                                        (self.train_x, self.train_y))

@@ -117,84 +117,12 @@ class SGPMC:
                          "mean": state["mean"]})
         return lp
 
-    def _fused_warm_ok(self) -> bool:
-        """Gate for the whole-chunk Pallas warm start (ops/fused_sgpmc):
-        Scale(RBF-ARD) x Gaussian x Zero mean on TPU, n <= 2048 resident,
-        state row d + 2 + M <= 128. GGP_FUSED_WARM=0 disables."""
-        import os
-
-        from ..kernels.base import RBF, Scale
-
-        if os.environ.get("GGP_FUSED_WARM", "1") == "0":
-            return False
-        if jax.default_backend() != "tpu" or self.mesh is not None:
-            return False
-        if not (isinstance(self.kernel, Scale)
-                and type(self.kernel.base) is RBF and self.kernel.base.ard
-                and type(self.likelihood) is GaussianLikelihood
-                and type(self.mean_fn) is Zero):
-            return False
-        n, d = self.train_x.shape
-        M = self.Z.shape[0]
-        return n <= 2048 and d + 2 + M <= 128
-
-    def _warm_start_fused(self, num_steps: int, lr: float):
-        """Whole-chunk Pallas warm start: every Adam step (grams + blocked
-        chol + (theta, v, Z) adjoint + the XLA path's exact optax chain)
-        in-kernel (ops/fused_sgpmc), one kernel call for all steps."""
-        from ..ops.fused_sgpmc import make_fused_sgpmc_warm
-
-        n, d = self.train_x.shape
-        M = self.Z.shape[0]
-        dt = jnp.float32
-        chunk = make_fused_sgpmc_warm(n, M, d, self.jitter,
-                                      steps_per_call=num_steps, lr=lr)
-        if chunk is None:
-            return None
-
-        @jax.jit
-        def run(state, Z, X, y):
-            Np = -(-n // 128) * 128
-            Xp = jnp.zeros((Np, 128), dt).at[:n, :d].set(X.astype(dt))
-            yrow = jnp.zeros((1, Np), dt).at[0, :n].set(y.astype(dt))
-            st = jnp.zeros((1, 128), dt)
-            st = st.at[0, :d].set(state["kernel"]["base"]["log_lengthscale"])
-            st = st.at[0, d].set(state["kernel"]["log_outputscale"])
-            st = st.at[0, d + 1].set(state["lik"]["log_noise"])
-            st = st.at[0, d + 2:d + 2 + M].set(state["v"])
-            Zp = jnp.zeros((128, 128), dt).at[:M, :d].set(Z.astype(dt))
-            zeros = {"state": jnp.zeros_like(st), "Z": jnp.zeros_like(Zp)}
-            st, Zp, _, _, losses = chunk(st, Zp, zeros,
-                                         {k: jnp.zeros_like(v)
-                                          for k, v in zeros.items()},
-                                         Xp, yrow, jnp.asarray(0.0, dt))
-            return st, Zp, losses
-
-        st, Zp, losses = run(self.state, self.Z, self.train_x, self.train_y)
-        xdt = self.train_x.dtype
-        self.state = {
-            "v": st[0, d + 2:d + 2 + M].astype(xdt),
-            "kernel": {"base": {"log_lengthscale": st[0, :d].astype(xdt)},
-                       "log_outputscale": st[0, d].astype(xdt)},
-            "lik": {"log_noise": st[0, d + 1].astype(xdt)},
-            "mean": self.state["mean"],
-        }
-        self.Z = Zp[:M, :d].astype(xdt)
-        return list(np.asarray(losses))
-
     def warm_start(self, num_steps: int = 100, lr: float = 0.01):
         """Optimise (v, theta, Z) by Adam on the same target + Z free, then
         freeze Z (reference: Scipy 100 iters then freeze,
         models/sgp_hmc.py:54-56). One jitted lax.scan — the former
-        Python step loop paid a dispatch + host sync per iteration. On TPU
-        in the flagship configuration the whole loop runs as ONE Pallas
-        kernel (ops/fused_sgpmc), replicating this optax chain
-        step-for-step (tests/test_fused_sgpmc_warm.py)."""
+        Python step loop paid a dispatch + host sync per iteration."""
         import optax
-        if self._fused_warm_ok():
-            out = self._warm_start_fused(num_steps, lr)
-            if out is not None:
-                return out
         params = {"state": self.state, "Z": self.Z}
         optimizer = optax.chain(optax.zero_nans(),
                                 optax.clip_by_global_norm(10.0),
@@ -224,97 +152,6 @@ class SGPMC:
         self.Z = params["Z"]
         return list(np.asarray(vals))
 
-    def _fused_builder(self, algorithm, num_leapfrog, num_chains=1,
-                       max_depth=8):
-        """Whole-transition/whole-chunk Pallas kernels for the whitened
-        JointHMC target (ops.fused_nuts target="sgpmc") — NUTS or the
-        reference's fixed-leapfrog HMC protocol. Default-on on TPU for the
-        Scale(RBF-ARD) x Gaussian x Zero-mean x Gamma(2,1) configuration
-        (GGP_FUSED_TRANSITION=0 disables)."""
-        import os
-
-        from ..kernels.base import RBF, Scale
-        from ..means import Zero
-        from ..ops.fused_nuts import fused_nuts_supported, make_fused_nuts
-        from ..priors import Gamma
-
-        if os.environ.get("GGP_FUSED_TRANSITION", "1") == "0":
-            return None
-        interpret = jax.default_backend() != "tpu"
-        if interpret and not os.environ.get("GGP_FUSED_MESH_INTERPRET"):
-            return None
-        if num_chains != 1:
-            if algorithm == "nuts" \
-                    and os.environ.get("GGP_FUSED_MC_NUTS", "1") == "0":
-                return None
-            return self._fused_multichain(num_chains, num_leapfrog,
-                                          algorithm, max_depth)
-        if self.mesh is not None or interpret:
-            # single-chain fused has no mesh composition (and the CPU
-            # interpret opt-in is for the mesh-composed multichain only)
-            return None
-        if not (isinstance(self.kernel, Scale)
-                and type(self.kernel.base) is RBF and self.kernel.base.ard
-                and type(self.likelihood) is GaussianLikelihood
-                and type(self.mean_fn) is Zero):
-            return None
-        prs = [p for p in jax.tree_util.tree_leaves(
-            self.hyper_prior_tree,
-            is_leaf=lambda x: hasattr(x, "logpdf_unconstrained"))]
-        if not all(p == Gamma(2.0, 1.0) for p in prs):
-            return None
-        n, d = self.train_x.shape
-        M = self.Z.shape[0]
-        # past MAX_N_RESIDENT the sgpmc core streams X/y from HBM (round 4)
-        if not fused_nuts_supported(n, d, M) or d + 2 + M > 128:
-            return None
-        builder = make_fused_nuts(self.train_x, self.train_y, self.jitter,
-                                  target="sgpmc", algorithm=algorithm,
-                                  num_leapfrog=num_leapfrog)
-        if builder is None:
-            return None
-        return lambda data: builder(data[2])      # data = (X, y, Z)
-
-    def _fused_multichain(self, num_chains, num_leapfrog, algorithm="hmc",
-                          max_depth=8):
-        """Chain-batched fused sampling for the whitened JointHMC target
-        (ops.fused_multichain target="sgpmc"): C lock-step chains per
-        Pallas call, one batched Kmm factorisation per leapfrog for all
-        chains — fixed-leapfrog HMC or lock-step multinomial NUTS
-        (round 3). Structure gates mirror _fused_builder."""
-        from ..kernels.base import RBF, Scale
-        from ..means import Zero
-        from ..ops.fused_multichain import (fused_multichain_supported,
-                                            make_fused_hmc_multichain)
-        from ..priors import Gamma
-
-        if not (isinstance(self.kernel, Scale)
-                and type(self.kernel.base) is RBF and self.kernel.base.ard
-                and type(self.likelihood) is GaussianLikelihood
-                and type(self.mean_fn) is Zero):
-            return None
-        prs = [p for p in jax.tree_util.tree_leaves(
-            self.hyper_prior_tree,
-            is_leaf=lambda x: hasattr(x, "logpdf_unconstrained"))]
-        if not all(p == Gamma(2.0, 1.0) for p in prs):
-            return None
-        n, d = self.train_x.shape
-        M = self.Z.shape[0]
-        if (not fused_multichain_supported(n, d, M, num_chains,
-                                           target="sgpmc")
-                or d + 2 + M > 128):
-            return None
-        builder = make_fused_hmc_multichain(self.train_x, self.train_y,
-                                            self.jitter,
-                                            num_chains=num_chains,
-                                            num_leapfrog=num_leapfrog,
-                                            target="sgpmc",
-                                            algo=algorithm,
-                                            max_depth=max_depth)
-        if builder is None:
-            return None
-        return lambda data: builder(data[2])      # data = (X, y, Z)
-
     def train_model(self, num_warmup: int = 500, num_samples: int = 500,
                     num_chains: int = 1, key=None, algorithm: str = "nuts",
                     num_leapfrog: int = 10):
@@ -328,9 +165,7 @@ class SGPMC:
             cfg = NUTSConfig(num_warmup=num_warmup, num_samples=num_samples,
                              algorithm=algorithm, num_leapfrog=num_leapfrog)
             self._sampler = build_sampler(
-                self._logpost, self.state, cfg, num_chains, mesh=self.mesh,
-                fused_builder=self._fused_builder(algorithm, num_leapfrog,
-                                                  num_chains))
+                self._logpost, self.state, cfg, num_chains, mesh=self.mesh)
             self._sampler_key = skey
         samples, stats = self._sampler(
             self.state, key, (self.train_x, self.train_y, self.Z))

@@ -8,7 +8,7 @@ a single ``lax.scan`` under ``jit`` — no Python in the hot path, and the same
 ``elbo`` function is reused as the HMC target for the Bayesian models
 (models/bayesian_sgpr_hmc.py uses the identical VFE marginal via pymc3).
 
-Math (all matmul-dominant for the MXU):
+Math (matmul-dominant):
   L  = chol(Kmm + jitter I)
   A  = L^-1 Kmn / sigma                  (M x N)
   B  = I + A A^T ;  LB = chol(B)
@@ -26,7 +26,6 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 import optax
 
 from ..config import default_jitter
@@ -48,66 +47,8 @@ def vfe_stats(kernel: Kernel, kp: dict, Z: jnp.ndarray, X: jnp.ndarray,
     All four are additive over N — the basis of the data-sharded /
     streamed big-N path (SURVEY §5.7): each device computes its local block
     and a ``psum`` over the data axis yields the global stats. Forms
-    S_kk = Kmn Knm on the MXU (one large matmul per block).
-
-    The fused streaming Pallas kernel (``ggp_tpu.ops.pallas_vfe``) is used
-    — Knm never materialises in HBM — when the kernel is Scale(RBF/Matern)
-    in f32 on TPU and EITHER ``GGP_USE_PALLAS=1`` (explicit) OR
-    N >= 100_000 (automatic: that is the regime where the bf16 single-pass
-    S_kk reduction beats XLA, PERF.md; the reduction target is regularised
-    downstream as B = I + A A^T so ~1e-3 relative Gram-of-Gram error is
-    tolerable, and at that N the stats are consumed by SGHMC/sharded paths
-    whose gradient noise dominates it). ``GGP_DISABLE_PALLAS=1`` kills both.
+    S_kk = Kmn Knm as one large matmul per block.
     """
-    import os as _os
-
-    from ..kernels.base import RBF, Matern12, Matern32, Matern52, Scale
-    _FAM = {RBF: "rbf", Matern12: "matern12", Matern32: "matern32",
-            Matern52: "matern52"}
-    fam = (_FAM.get(type(kernel.base))
-           if isinstance(kernel, Scale) else None)
-    n = jnp.asarray(X).shape[0]
-    explicit = bool(_os.environ.get("GGP_USE_PALLAS"))
-    # the streamed Pallas kernels do not support vmapped callers (the
-    # scalar SMEM operands pick up a batch dim Mosaic cannot block —
-    # hit by multi-chain SGHMC's vmapped anchor gradient at N=1e6,
-    # round 5); batched calls fall back to the XLA stats path
-    def _under_batch_trace(x):
-        # a vmapped caller may wrap the BatchTracer in JVP/other tracers
-        # (grad-of-vmap); walk the tracer stack
-        try:
-            from jax.interpreters.batching import BatchTracer
-        except ImportError:  # pragma: no cover - jax internals moved
-            return False
-        seen = 0
-        while isinstance(x, jax.core.Tracer) and seen < 8:
-            if isinstance(x, BatchTracer):
-                return True
-            inner = getattr(x, "primal", None)
-            if inner is None:
-                inner = getattr(x, "val", None)
-            if inner is None:
-                return False
-            x, seen = inner, seen + 1
-        return False
-
-    batched = any(_under_batch_trace(a)
-                  for a in (X, y, Z, *jax.tree_util.tree_leaves(kp)))
-    # automatic big-N switch only where it wins: compiled Pallas on TPU
-    # (on CPU interpret-mode Pallas is far slower than XLA at exactly these
-    # sizes, and bf16 would silently downgrade precision — ADVICE r2)
-    auto = n >= 100_000 and jax.default_backend() == "tpu"
-    if (fam is not None and (explicit or auto) and not batched
-            and jnp.asarray(X).dtype == jnp.float32    # pallas path is f32
-            and not _os.environ.get("GGP_DISABLE_PALLAS")):
-        from ..ops.pallas_vfe import _BF16_REDUCE, stationary_vfe_stats
-        # respect an explicit set_bf16_reduce(False); default True for the
-        # automatic big-N branch where the single-pass MXU reduce is the win
-        bf16 = _BF16_REDUCE[0] if _BF16_REDUCE[0] is not None else (
-            auto and not explicit)
-        return stationary_vfe_stats(X, y, Z, kp["base"]["log_lengthscale"],
-                                    kp["log_outputscale"], fam=fam,
-                                    bf16=bf16)
     Kmn = kernel.gram(kp, Z, X)                      # (M, Nb)
     return {
         "S_kk": Kmn @ Kmn.T,                         # (M, M)
@@ -122,67 +63,38 @@ def sgpr_elbo_from_stats(kernel: Kernel, params: dict, stats: dict, n: int,
                          f64_core: Optional[bool] = None) -> jnp.ndarray:
     """Collapsed VFE bound from :func:`vfe_stats` (identical value to
     :func:`sgpr_elbo` up to fp error; squares the Kmn condition number, so
-    prefer the direct path when N fits on one chip).
+    prefer the direct path when N fits on one device).
 
-    ``f64_core`` (round 5): run the O(M^2) epilogue — the grams, solves
-    and Cholesky factorisations — in float64 regardless of input dtype
-    (default: ``GGP_STATS_F64=1``; requires ``jax_enable_x64``). The
-    stats formulation loses cond(Kmn)^2 digits (CLAUDE.md); the f64
-    epilogue extends the finite envelope of ~1M-row scaled-stats targets
-    without the O(N) cost of f64 stats. Measured limitation (PERF.md
-    round 5): at collapsed-outputscale/large-lengthscale modes the f32
-    S_kk is itself non-PSD beyond any epilogue precision — f64 stats
-    would be required there. Uses the pure-HLO blocked factorisation
-    (ops/fused_bound.block_chol_u) because TPU's cholesky/
-    triangular_solve custom calls fault on f64 operands (measured).
+    ``f64_core``: run the O(M^2) epilogue — the grams, solves and Cholesky
+    factorisations — in float64 regardless of input dtype (default:
+    ``GGP_STATS_F64=1``; requires ``jax_enable_x64``). The stats
+    formulation loses cond(Kmn)^2 digits; the f64 epilogue extends the
+    finite envelope of ~1M-row scaled-stats targets without the O(N) cost
+    of f64 stats. At collapsed-outputscale/large-lengthscale modes the f32
+    S_kk is itself non-PSD beyond any epilogue precision — f64 stats would
+    be required there.
     """
     import os as _os
     if f64_core is None:
         f64_core = bool(_os.environ.get("GGP_STATS_F64"))
-    f64_core = f64_core and jax.config.read("jax_enable_x64")
-    Z = params["Z"]
-    M = Z.shape[0]
-    if f64_core:
+    if f64_core and jax.config.read("jax_enable_x64"):
         work = jnp.float64
         stats = {k: jnp.asarray(v, work) for k, v in stats.items()}
         params = jax.tree_util.tree_map(
             lambda a: jnp.asarray(a, work), params)
-        Z = params["Z"]
+    Z = params["Z"]
+    M = Z.shape[0]
     sigma2 = jnp.exp(params["log_noise"])
     Kmm = kernel.gram(params["kernel"], Z, Z)
-    if f64_core:
-        # TPU's cholesky/triangular_solve custom calls fault on f64 inputs
-        # (measured round 5: "TPU device error - kernel fault"); the pure
-        # HLO blocked factorisation + inverse emulate f64 fine and M x M
-        # is microseconds at M=100
-        from ..ops.fused_bound import _round_up, block_chol_u, block_ut_inv
-        from ..ops.linalg import add_jitter
-        Mp = _round_up(M, 32)
-        pad = Mp - M
-        Kp = jnp.eye(Mp, dtype=work).at[:M, :M].set(
-            add_jitter(Kmm, jitter, relative=True))
-        Skkp = jnp.zeros((Mp, Mp), work).at[:M, :M].set(stats["S_kk"])
-        Skyp = jnp.zeros((Mp,), work).at[:M].set(stats["S_ky"])
-        del pad
-        U = block_chol_u(Kp)                                      # L^T
-        Linv = block_ut_inv(U).T                                  # L^-1
-        AAt = Linv @ Skkp @ Linv.T / sigma2
-        B = AAt + jnp.eye(Mp, dtype=AAt.dtype)
-        UB = block_chol_u(B)
-        LBinv = block_ut_inv(UB).T
-        diag_LB = jnp.diagonal(UB)          # pad lanes are exactly 1
-        Ay = (Linv @ Skyp) / jnp.sqrt(sigma2)
-        c = (LBinv @ Ay) / jnp.sqrt(sigma2)
-    else:
-        L = safe_cholesky(Kmm, jitter, relative=True)
-        # AA^T = L^-1 S_kk L^-T / sigma^2
-        T = tri_solve(L, stats["S_kk"])
-        AAt = tri_solve(L, T.T).T / sigma2           # (M, M), symmetric
-        B = AAt + jnp.eye(M, dtype=AAt.dtype)
-        LB = safe_cholesky(B, 0.0)
-        diag_LB = jnp.diagonal(LB)
-        Ay = tri_solve(L, stats["S_ky"]) / jnp.sqrt(sigma2)
-        c = tri_solve(LB, Ay) / jnp.sqrt(sigma2)
+    L = safe_cholesky(Kmm, jitter, relative=True)
+    # AA^T = L^-1 S_kk L^-T / sigma^2
+    T = tri_solve(L, stats["S_kk"])
+    AAt = tri_solve(L, T.T).T / sigma2               # (M, M), symmetric
+    B = AAt + jnp.eye(M, dtype=AAt.dtype)
+    LB = safe_cholesky(B, 0.0)
+    diag_LB = jnp.diagonal(LB)
+    Ay = tri_solve(L, stats["S_ky"]) / jnp.sqrt(sigma2)
+    c = tri_solve(LB, Ay) / jnp.sqrt(sigma2)
 
     bound = -0.5 * n * jnp.log(2.0 * jnp.pi * sigma2)
     bound -= jnp.sum(jnp.log(diag_LB))
@@ -196,13 +108,10 @@ def _bound_core(Kmm_j, stats, log_noise, n, jitter=1e-6):
     """Collapsed bound from (jittered Kmm, stats, log_noise) with a
     hand-derived backward pass.
 
-    Motivation (PERF.md hot-loop profile): on the target TPU runtime every
-    loop iteration pays ~80us fixed once any linalg custom call appears plus
-    ~20us per extra call; autodiff of the straightforward bound emits ~6.
-    Here the forward uses exactly TWO batched custom calls — one stacked
+    The forward uses exactly TWO batched linalg calls — one stacked
     Cholesky of [Kmm, M1=Kmm+S_kk/sigma^2] and one stacked triangular
-    inverse — and the backward is pure dense algebra over the saved
-    inverses:
+    inverse (autodiff of the straightforward bound emits ~6) — and the
+    backward is pure dense algebra over the saved inverses:
 
       F = c - (log|M1| - log|Kmm| + n log s2)/2 - s_yy/(2 s2)
           + S_ky^T M1^-1 S_ky/(2 s2^2) - (s_kdiag - tr(Kmm^-1 S_kk))/(2 s2)
@@ -219,7 +128,7 @@ def _bound_core_fwd(Kmm_j, stats, log_noise, n, jitter=1e-6):
     # S_kk is a Gram-of-Gram: f32 rounding makes it indefinite at the
     # ~1e-7*||S_kk|| level, which /s2 amplifies past Kmm's small eigenvalues
     # — without this relative jitter the stacked Cholesky NaNs at small
-    # noise on TPU (symmetrise + scale-aware floor)
+    # noise in f32 (symmetrise + scale-aware floor)
     M1 = 0.5 * (M1 + M1.T)
     m1_scale = jnp.maximum(jnp.mean(jnp.diagonal(M1)), 1.0)
     M1 = M1 + (jitter * m1_scale) * jnp.eye(M, dtype=M1.dtype)
@@ -271,13 +180,13 @@ _bound_core.defvjp(lambda K, s, l, n, j: _bound_core_fwd(K, s, l, n, j),
 def sgpr_hmc_target_elbo():
     """The collapsed-bound implementation used as HMC leapfrog target.
 
-    DEFAULT: the direct Cholesky bound (:func:`sgpr_elbo`). The fused
-    2-custom-call variant (:func:`sgpr_elbo_fast`) is ~1.25x faster per
-    eval but works in the stats formulation, whose f32 gradients lose
-    cond(Kmn)^2 digits — at realistic (small-noise) hypers on TPU they are
-    unusable, so it is OPT-IN via ``GGP_FAST_ELBO=1`` (safe under x64 or
-    well-conditioned problems). Read at TRACE time — toggling after a
-    sampler is compiled has no effect on the cached executable.
+    DEFAULT: the direct Cholesky bound (:func:`sgpr_elbo`). The
+    2-linalg-call variant (:func:`sgpr_elbo_fast`) works in the stats
+    formulation, whose f32 gradients lose cond(Kmn)^2 digits — at realistic
+    (small-noise) hypers in f32 they are unusable, so it is OPT-IN via
+    ``GGP_FAST_ELBO=1`` (safe under x64 or well-conditioned problems). Read
+    at TRACE time — toggling after a sampler is compiled has no effect on
+    the cached executable.
     """
     import os as _os
     return sgpr_elbo_fast if _os.environ.get("GGP_FAST_ELBO") else sgpr_elbo
@@ -285,7 +194,7 @@ def sgpr_hmc_target_elbo():
 
 def sgpr_elbo_fast(kernel: Kernel, params: dict, X: jnp.ndarray,
                    y: jnp.ndarray, jitter: Optional[float] = None) -> jnp.ndarray:
-    """Collapsed VFE bound, custom-call-minimised variant (see _bound_core).
+    """Collapsed VFE bound, linalg-call-minimised variant (see _bound_core).
 
     Same value as :func:`sgpr_elbo` up to fp reassociation; preferred as the
     HMC leapfrog target. Note it squares Kmn's condition number (stats
@@ -409,45 +318,10 @@ class SparseGPR:
         return -sgpr_elbo(self.kernel, params, self.train_x, self.train_y,
                           self.jitter)
 
-    def _fused_train_ok(self) -> bool:
-        """Gate for the whole-chunk Pallas trainer (ops/fused_sgpr):
-        Scale(RBF-ARD) x Gaussian, N <= 16384 (> 2048 streams X/y from
-        HBM), M <= 512, on TPU. GGP_FUSED_SGPR=0 disables."""
-        import os
-
-        import jax as _jax
-        if os.environ.get("GGP_FUSED_SGPR", "1") == "0":
-            return False
-        if _jax.default_backend() != "tpu":
-            return False
-        from ..kernels.base import RBF, Scale
-        if not (isinstance(self.kernel, Scale)
-                and type(self.kernel.base) is RBF and self.kernel.base.ard):
-            return False
-        if type(self.likelihood) is not GaussianLikelihood:
-            return False
-        n, d = self.train_x.shape
-        return (n <= 16384 and self.params["Z"].shape[0] <= 512
-                and d <= 125)
-
     def train_model(self, optimizer=None, max_steps: int = 2000, lr: float = 0.01,
                     log_interval: int = 1000, verbose: bool = True):
         """Adam on (theta, Z) via one jitted lax.scan (reference loop:
         models/sgpr.py:110-144). Returns the per-step loss trajectory."""
-        if optimizer is None and self._fused_train_ok():
-            # whole-chunk Pallas trainer: both grams, both blocked
-            # factorizations, the (theta, Z) adjoint, the optax chain and
-            # the box projection all in-kernel (ops/fused_sgpr); same
-            # trajectory as the XLA scan (tests/test_fused_sgpr.py)
-            self.params, losses = _run_adam_fused(
-                self.train_x, self.train_y, self.jitter, self.params,
-                max_steps, lr,
-                data_scale=float(np.max(np.abs(np.asarray(self.train_x)))))
-            if verbose and log_interval:
-                for j in range(0, max_steps, log_interval):
-                    print(f"Iter {j}/{max_steps} - Loss: "
-                          f"{float(losses[j]):.3f}")
-            return losses
         if optimizer is None:
             # clip guards against Cholesky-gradient blow-ups on
             # ill-conditioned composite kernels in f32
@@ -514,58 +388,3 @@ def _run_adam(kernel, X, y, jitter, params, optimizer, max_steps,
     (params, _), losses = jax.lax.scan(step, (params, opt_state), None,
                                        length=max_steps)
     return params, losses
-
-
-@partial(jax.jit, static_argnums=(2, 4, 5, 6, 7, 8),
-         static_argnames=("data_scale",))
-def _run_adam_fused(X, y, jitter, params, max_steps, lr, min_noise=1e-4,
-                    clip_norm=100.0, data_scale=0.0):
-    """Whole-chunk fused trainer: K=200 Adam steps per Pallas call under a
-    lax.scan, plus one remainder chunk (ops/fused_sgpr). Same optimizer
-    chain and projections as :func:`_run_adam`."""
-    from ..ops.fused_sgpr import make_fused_sgpr
-
-    n, d = X.shape
-    M = params["Z"].shape[0]
-    dt = jnp.float32
-    Mp, Np = max(128, -(-M // 128) * 128), -(-n // 8) * 8
-    theta = jnp.zeros((1, 128), dt)
-    theta = theta.at[0, :d].set(params["kernel"]["base"]["log_lengthscale"])
-    theta = theta.at[0, d].set(params["kernel"]["log_outputscale"])
-    theta = theta.at[0, d + 1].set(params["log_noise"])
-    Z = jnp.zeros((Mp, 128), dt).at[:M, :d].set(params["Z"].astype(dt))
-    Xp = jnp.zeros((Np, 128), dt).at[:n, :d].set(X.astype(dt))
-    yp = jnp.zeros((Np, 1), dt).at[:n, 0].set(y.astype(dt))
-    zero = {"theta": jnp.zeros((1, 128), dt), "Z": jnp.zeros((Mp, 128), dt)}
-
-    K = min(int(max_steps), 200)
-    n_full, rem = divmod(int(max_steps), K)
-    chunk = make_fused_sgpr(n, M, d, jitter, steps_per_call=K, lr=lr,
-                            min_noise=min_noise, clip_norm=clip_norm,
-                            data_scale=data_scale)
-
-    def body(carry, t0):
-        theta, Z, am, av = carry
-        theta, Z, am, av, losses = chunk(theta, Z, am, av, Xp, yp, t0)
-        return (theta, Z, am, av), losses
-
-    t0s = jnp.arange(n_full, dtype=dt) * K
-    (theta, Z, am, av), losses = jax.lax.scan(
-        body, (theta, Z, dict(zero), dict(zero)), t0s)
-    losses = losses.reshape(-1)
-    if rem:
-        tail = make_fused_sgpr(n, M, d, jitter, steps_per_call=rem, lr=lr,
-                               min_noise=min_noise, clip_norm=clip_norm,
-                               data_scale=data_scale)
-        theta, Z, am, av, l2 = tail(theta, Z, am, av, Xp, yp,
-                                    jnp.asarray(n_full * K, dt))
-        losses = jnp.concatenate([losses, l2])
-
-    out = {
-        "kernel": {"base": {"log_lengthscale":
-                            theta[0, :d].astype(X.dtype)},
-                   "log_outputscale": theta[0, d].astype(X.dtype)},
-        "log_noise": theta[0, d + 1].astype(X.dtype),
-        "Z": Z[:M, :d].astype(X.dtype),
-    }
-    return out, losses

@@ -9,11 +9,11 @@ classification through a multitask wrapper chosen by probing
 ``likelihood.noise``, models/svgp.py:40-46 — here the likelihood object
 declares its latent count directly).
 
-TPU-native design: the entire multi-epoch minibatch loop is a nested
-``lax.scan`` under one jit (epoch-level permutation + step-level dynamic
-slicing), instead of a Python epoch loop over a host DataLoader
-(models/svgp.py:93-127). C latent functions are handled by batched (C-leading)
-cholesky/solves — one MXU-batched factorisation, not a loop.
+Design: the entire multi-epoch minibatch loop is a nested ``lax.scan`` under
+one jit (epoch-level permutation + step-level dynamic slicing), instead of a
+Python epoch loop over a host DataLoader (models/svgp.py:93-127). C latent
+functions are handled by batched (C-leading) cholesky/solves — one batched
+factorisation, not a loop.
 """
 
 from __future__ import annotations
@@ -128,55 +128,6 @@ class StochasticVariationalGP:
         return -svgp_elbo(self.kernel, self.likelihood, params, X_batch,
                           y_batch, self.train_x.shape[0], self.jitter)
 
-    def _fused_likelihood_tag(self):
-        """Kernel likelihood tag, or None if the likelihood has no fused
-        data term (custom likelihoods)."""
-        from ..likelihoods import BernoulliProbit, PoissonLogCox
-        if type(self.likelihood) is GaussianLikelihood:
-            return "gauss"
-        if type(self.likelihood) is BernoulliProbit:
-            return "bernoulli_probit"
-        if type(self.likelihood) is PoissonLogCox:
-            return "poisson"
-        if type(self.likelihood) is Softmax:
-            return "softmax"
-        return None
-
-    def _fused_svi_ok(self, batch_size) -> bool:
-        """Gate for the whole-epoch Pallas SVI kernel (ops/fused_svi):
-        Scale(RBF-ARD) x {Gaussian, Bernoulli-probit, Poisson, Softmax},
-        M <= 512, batch <= 512, on TPU. GGP_FUSED_SVI=0 disables."""
-        import os
-        if os.environ.get("GGP_FUSED_SVI", "1") == "0":
-            return False
-        if jax.default_backend() != "tpu":
-            return False
-        from ..kernels.base import RBF, Scale
-        if not (isinstance(self.kernel, Scale)
-                and type(self.kernel.base) is RBF and self.kernel.base.ard):
-            return False
-        tag = self._fused_likelihood_tag()
-        if tag is None:
-            return False
-        M = self.params["Z"].shape[0]
-        d = self.train_x.shape[-1]
-        if tag == "softmax":
-            # multi-latent kernel envelope (ops/fused_svi
-            # make_fused_svi_softmax): the eps slab for a whole epoch must
-            # fit VMEM alongside the C (Mp,Mp) q_raw stacks
-            from ..ops.fused_svi import make_fused_svi_softmax
-            N = self.train_x.shape[0]
-            bs = min(batch_size, N)
-            steps = N // bs
-            C = self.likelihood.num_classes
-            mc = self.likelihood.num_mc
-            if mc % 2 != 0:
-                return False
-            probe = make_fused_svi_softmax(N, bs, M, d, C, mc // 2,
-                                           self.jitter, steps_per_call=steps)
-            return probe is not None
-        return M <= 512 and batch_size <= 512 and d + 2 <= 127
-
     def train_model(self, optimizer=None, num_epochs: int = 100,
                     batch_size: int = 200, lr: float = 0.01, key=None,
                     verbose: bool = False):
@@ -187,26 +138,6 @@ class StochasticVariationalGP:
         N = self.train_x.shape[0]
         batch_size = min(batch_size, N)
         steps = N // batch_size
-        if optimizer is None and self._fused_svi_ok(batch_size):
-            # whole-epoch Pallas kernel: every Adam step (gram + blocked
-            # chol + hand adjoint + update) in-kernel (ops/fused_svi);
-            # same batching schedule and optax-adam trajectory as the XLA
-            # path (tests/test_fused_svi.py)
-            tag = self._fused_likelihood_tag()
-            if tag == "softmax":
-                self.params, losses = _run_svi_fused_softmax(
-                    self.train_x, self.train_y, self.jitter, self.params,
-                    num_epochs, batch_size, steps, lr, key,
-                    self.likelihood.num_classes, self.likelihood.num_mc)
-            else:
-                self.params, losses = _run_svi_fused(
-                    self.kernel, self.train_x, self.train_y, self.jitter,
-                    self.params, num_epochs, batch_size, steps, lr, key,
-                    tag)
-            if verbose:
-                print(f"SVGP(fused): epoch loss {float(losses[0]):.3f} -> "
-                      f"{float(losses[-1]):.3f}")
-            return losses
         if optimizer is None:
             optimizer = optax.adam(lr)
         self.params, losses = _run_svi(
@@ -276,9 +207,9 @@ def _run_svi(kernel, likelihood, X, y, jitter, params, optimizer, num_epochs,
                                   key=bkey)
 
             val, g = jax.value_and_grad(loss)(p)
-            # zero_nans-style guard (matches the fused kernel's Adam): a
-            # borderline non-PSD Kmm or an overflowed poisson rate must
-            # not poison optimizer state for the rest of training
+            # zero_nans-style guard: a borderline non-PSD Kmm or an
+            # overflowed poisson rate must not poison optimizer state for
+            # the rest of training
             g = jax.tree_util.tree_map(
                 lambda a: jnp.where(jnp.isfinite(a), a, 0.0), g)
             updates, s = optimizer.update(g, s, p)
@@ -290,144 +221,3 @@ def _run_svi(kernel, likelihood, X, y, jitter, params, optimizer, num_epochs,
     ekeys = jax.random.split(key, num_epochs)
     (params, _), losses = jax.lax.scan(epoch, (params, opt_state), ekeys)
     return params, losses
-
-
-@partial(jax.jit, static_argnums=(2, 4, 5, 6, 7, 9, 10))
-def _run_svi_fused_softmax(X, y, jitter, params, num_epochs, batch_size,
-                           steps_per_epoch, lr, key, C, num_mc):
-    """Whole-epoch fused softmax SVI (ops/fused_svi make_fused_svi_softmax).
-
-    Same batching schedule AND per-step eps draws as :func:`_run_svi` with
-    a Softmax likelihood — the epoch key is folded and split exactly as
-    there, and each step's antithetic normal block is drawn with the step
-    key the way Softmax.variational_expectation draws it — so the fused
-    trajectory replicates the XLA optax trajectory step-for-step."""
-    from ..ops.fused_svi import make_fused_svi_softmax
-
-    N = X.shape[0]
-    M = params["q_mu"].shape[0]
-    d = X.shape[-1]
-    dt = jnp.float32
-    nbp = -(-batch_size // 8) * 8
-    n_half = num_mc // 2
-    Sp = -(-n_half // 8) * 8
-    svi = make_fused_svi_softmax(N, batch_size, M, d, C, n_half, jitter,
-                                 steps_per_call=steps_per_epoch, lr=lr)
-
-    Mp = max(128, -(-M // 128) * 128)
-    hyp = jnp.zeros((1, 128), dt)
-    hyp = hyp.at[0, :d].set(params["kernel"]["base"]["log_lengthscale"])
-    hyp = hyp.at[0, d].set(params["kernel"]["log_outputscale"])
-    pp = {
-        "hyp": hyp,
-        "Z": jnp.zeros((Mp, 128), dt).at[:M, :d].set(params["Z"]),
-        "q_mu": jnp.zeros((Mp, 128), dt).at[:M, :C].set(params["q_mu"]),
-        "q_raw": tuple(jnp.zeros((Mp, Mp), dt).at[:M, :M].set(
-            params["q_sqrt_raw"][c]) for c in range(C)),
-    }
-    mm = jax.tree_util.tree_map(jnp.zeros_like, pp)
-    vv = jax.tree_util.tree_map(jnp.zeros_like, pp)
-
-    def epoch(carry, ekey):
-        pp, mm, vv, t0 = carry
-        perm = jax.random.permutation(ekey, N)[:steps_per_epoch * batch_size]
-        idx = perm.reshape(steps_per_epoch, batch_size)
-        rows = jnp.zeros((steps_per_epoch, nbp, 128), dt)
-        rows = rows.at[:, :batch_size, :d].set(X[idx].astype(dt))
-        rows = rows.at[:, :batch_size, 127].set(y[idx].astype(dt))
-        slab = rows.reshape(steps_per_epoch * nbp, 128)
-        skeys = jax.random.split(jax.random.fold_in(ekey, 1),
-                                 steps_per_epoch)
-        eps = jax.vmap(lambda k: jax.random.normal(
-            k, (n_half, batch_size, C), X.dtype))(skeys)
-        # kernel layout: (step, class, samples-in-sublanes, points-in-lanes)
-        erows = jnp.zeros((steps_per_epoch, C, Sp, nbp), dt)
-        erows = erows.at[:, :, :n_half, :batch_size].set(
-            jnp.transpose(eps, (0, 3, 1, 2)).astype(dt))
-        eps_slab = erows.reshape(steps_per_epoch * C * Sp, nbp)
-        pp, mm, vv, losses = svi(pp, mm, vv, slab, eps_slab, t0)
-        return (pp, mm, vv, t0 + steps_per_epoch), jnp.mean(losses)
-
-    ekeys = jax.random.split(key, num_epochs)
-    (pp, _, _, _), losses = jax.lax.scan(epoch, (pp, mm, vv,
-                                                 jnp.asarray(0.0, dt)),
-                                         ekeys)
-    out = {
-        "kernel": {"base": {"log_lengthscale":
-                            pp["hyp"][0, :d].astype(X.dtype)},
-                   "log_outputscale": pp["hyp"][0, d].astype(X.dtype)},
-        "lik": params.get("lik", {}),
-        "Z": pp["Z"][:M, :d].astype(X.dtype),
-        "q_mu": pp["q_mu"][:M, :C].astype(X.dtype),
-        "q_sqrt_raw": jnp.stack([pp["q_raw"][c][:M, :M]
-                                 for c in range(C)]).astype(X.dtype),
-    }
-    return out, losses
-
-
-@partial(jax.jit, static_argnums=(0, 3, 5, 6, 7, 8, 10))
-def _run_svi_fused(kernel, X, y, jitter, params, num_epochs, batch_size,
-                   steps_per_epoch, lr, key, lik_tag):
-    """Whole-epoch fused SVI: same batching schedule as :func:`_run_svi`
-    (per-epoch permutation with the epoch key), every Adam step in-kernel
-    (ops/fused_svi). ``lik_tag`` selects the in-kernel data term
-    ("gauss" / "bernoulli_probit" / "poisson"); the batch key is unused
-    (quadrature/closed forms, no MC)."""
-    from ..ops.fused_svi import make_fused_svi
-
-    N = X.shape[0]
-    M, _ = params["q_mu"].shape
-    d = X.shape[-1]
-    dt = jnp.float32
-    nbp = -(-batch_size // 8) * 8
-    svi = make_fused_svi(N, batch_size, M, d, jitter,
-                         steps_per_call=steps_per_epoch, lr=lr,
-                         likelihood=lik_tag)
-
-    # pack params into the padded kernel layout
-    Mp = max(128, -(-M // 128) * 128)
-    hyp = jnp.zeros((1, 128), dt)
-    hyp = hyp.at[0, :d].set(params["kernel"]["base"]["log_lengthscale"])
-    hyp = hyp.at[0, d].set(params["kernel"]["log_outputscale"])
-    if lik_tag == "gauss":
-        hyp = hyp.at[0, d + 1].set(params["lik"]["log_noise"])
-    pp = {
-        "hyp": hyp,
-        "Z": jnp.zeros((Mp, 128), dt).at[:M, :d].set(params["Z"]),
-        "q_mu": jnp.zeros((Mp, 1), dt).at[:M].set(params["q_mu"]),
-        "q_raw": jnp.zeros((Mp, Mp), dt).at[:M, :M].set(
-            params["q_sqrt_raw"][0]),
-    }
-    mm = {k: jnp.zeros_like(v) for k, v in pp.items()}
-    vv = {k: jnp.zeros_like(v) for k, v in pp.items()}
-    lgam = (jax.scipy.special.gammaln(y.astype(dt) + 1.0)
-            if lik_tag == "poisson" else None)
-
-    def epoch(carry, ekey):
-        pp, mm, vv, t0 = carry
-        perm = jax.random.permutation(ekey, N)[:steps_per_epoch * batch_size]
-        idx = perm.reshape(steps_per_epoch, batch_size)
-        rows = jnp.zeros((steps_per_epoch, nbp, 128), dt)
-        rows = rows.at[:, :batch_size, :d].set(X[idx].astype(dt))
-        rows = rows.at[:, :batch_size, 127].set(y[idx].astype(dt))
-        if lgam is not None:
-            rows = rows.at[:, :batch_size, 126].set(lgam[idx])
-        slab = rows.reshape(steps_per_epoch * nbp, 128)
-        pp, mm, vv, losses = svi(pp, mm, vv, slab, t0)
-        return (pp, mm, vv, t0 + steps_per_epoch), jnp.mean(losses)
-
-    ekeys = jax.random.split(key, num_epochs)
-    (pp, _, _, _), losses = jax.lax.scan(epoch, (pp, mm, vv,
-                                                 jnp.asarray(0.0, dt)),
-                                         ekeys)
-    out = {
-        "kernel": {"base": {"log_lengthscale":
-                            pp["hyp"][0, :d].astype(X.dtype)},
-                   "log_outputscale": pp["hyp"][0, d].astype(X.dtype)},
-        "lik": ({"log_noise": pp["hyp"][0, d + 1].astype(X.dtype)}
-                if lik_tag == "gauss" else {}),
-        "Z": pp["Z"][:M, :d].astype(X.dtype),
-        "q_mu": pp["q_mu"][:M].astype(X.dtype),
-        "q_sqrt_raw": pp["q_raw"][:M, :M][None].astype(X.dtype),
-    }
-    return out, losses

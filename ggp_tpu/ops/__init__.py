@@ -9,33 +9,3 @@ from .linalg import (
     safe_cholesky,
     tri_solve,
 )
-
-# Pallas / custom-call-free layer (round 2): imported lazily by consumers to
-# keep `import ggp_tpu` light; exposed here for discoverability.
-from .fused_bound import (  # noqa: E402
-    block_chol_u,
-    block_ut_inv,
-    chol_u_inv_inplace,
-    make_rbf_vfe_potential,
-)
-from .fused_bound import make_gpr_potential, ut_solve_vec, ut_t_solve_vec  # noqa: E402
-from .fused_bound import (  # noqa: E402  (round 5)
-    co2_fused_spec,
-    make_co2_vfe_potential,
-    prior_spec_of_tree,
-)
-from .fused_multichain import (  # noqa: E402
-    FusedMultichainHMC,
-    fused_multichain_supported,
-    make_fused_hmc_multichain,
-)
-from .fused_nuts import FusedNUTS, fused_nuts_supported, make_fused_nuts  # noqa: E402
-from .fused_sgpmc import (make_fused_sgpmc_warm,  # noqa: E402
-                          sgpmc_warm_loss_vg)
-from .fused_sgpr import (make_fused_sgpr, make_fused_z_adam,  # noqa: E402
-                         sgpr_loss_vg)
-from .fused_svi import (bsvgp_loss_vg, make_fused_bsvgp,  # noqa: E402
-                        make_fused_svi, make_fused_svi_softmax, quad_table,
-                        svgp_gauss_loss_vg, svgp_loss_vg,
-                        svgp_softmax_loss_vg)
-from .pallas_vfe import rbf_vfe_stats, stationary_vfe_stats  # noqa: E402

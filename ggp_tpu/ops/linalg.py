@@ -2,7 +2,7 @@
 
 This is the layer the reference outsources to GPyTorch/LinearOperator,
 Theano, and TF (SURVEY §2.4) — here it is a thin, fully-jittable wrapper over
-XLA's batched Cholesky/triangular-solve (which already tile onto the MXU),
+XLA's batched Cholesky/triangular-solve (cuSOLVER/cuBLAS on the GPU),
 plus the jitter and PSD-guard policies the reference scatters as try/except
 blocks (models/bayesian_sgpr_hmc.py:225-229, models/gpr_hmc.py:113-117).
 

@@ -2,21 +2,19 @@
 
 The reference has no distributed communication layer at all (SURVEY §2.4/
 §5.8: joblib local processes only, experiments/regression.py:219-231).
-Single-process multi-chip sharding is first-class here via
+Single-process multi-device sharding is first-class here via
 ``ggp_tpu.parallel.make_mesh`` + GSPMD; THIS module covers the remaining
-step to multi-host TPU pods: one JAX process per host joined through
+step to several hosts: one JAX process per host joined through
 ``jax.distributed.initialize``, after which ``jax.devices()`` is the global
-device set, ``make_mesh()`` builds a pod-wide (chains, data) mesh, and every
-sharded sampler/optimiser in the package runs unchanged — XLA routes the
-``psum``/``all_gather`` collectives over ICI within a slice and DCN across
-slices.
+device set, ``make_mesh()`` builds a cluster-wide (chains, data) mesh, and
+every sharded sampler/optimiser in the package runs unchanged — XLA routes
+the ``psum``/``all_gather`` collectives over NVLink within a host and the
+network across hosts.
 
-Environment notes: on Cloud TPU pods ``jax.distributed.initialize()``
-auto-discovers the coordinator from the TPU metadata; elsewhere pass
-``coordinator_address``/``num_processes``/``process_id`` explicitly. This
-sandbox exposes one host + one chip, so multi-process behavior is covered by
-a same-host two-process smoke (tests/test_runtime.py) and the virtual-mesh
-sharding tests; the code path is the standard JAX one.
+Pass ``coordinator_address``/``num_processes``/``process_id`` explicitly
+unless a cluster manager (e.g. Slurm) provides them. Multi-process behaviour
+is covered by a same-host two-process smoke (tests/test_parallel.py) and the
+virtual-mesh sharding tests; the code path is the standard JAX one.
 """
 
 from __future__ import annotations
@@ -37,7 +35,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
     Returns a summary dict {process_id, num_processes, local_devices,
     global_devices}. With no arguments, relies on JAX's cluster
-    auto-detection (Cloud TPU / GKE / Slurm).
+    auto-detection (e.g. Slurm).
     """
     if not _initialized[0]:
         jax.distributed.initialize(coordinator_address=coordinator_address,
@@ -57,8 +55,9 @@ def is_distributed() -> bool:
 
 
 def global_mesh(chains_axis: Optional[int] = None):
-    """Pod-wide (chains, data) mesh over the GLOBAL device set — drop-in for
-    the model ``mesh=`` arguments (chains shard across hosts too; data-axis
-    psums ride ICI first by construction of the device order)."""
+    """Cluster-wide (chains, data) mesh over the GLOBAL device set — drop-in
+    for the model ``mesh=`` arguments (chains shard across hosts too;
+    data-axis psums stay within a host first by construction of the device
+    order)."""
     from .mesh import make_mesh
     return make_mesh(devices=jax.devices(), chains_axis=chains_axis)

@@ -8,7 +8,7 @@ a 2D ``(chains, data)`` mesh where
   of data parallelism for MCMC — the reference always ran chains=1,
   models/bayesian_sgpr_hmc.py:78),
 * ``data``  shards the N training rows of the VFE statistics (the analogue
-  of sequence/context parallelism; collectives are ``psum`` over ICI).
+  of sequence/context parallelism; collectives are ``psum`` over NVLink).
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """Sharded training: chain-parallel HMC over data-parallel VFE statistics.
 
-The multi-chip execution path (SURVEY §2.4 "TPU-native equivalent to build"):
+The multi-device execution path (SURVEY §2.4):
 one ``shard_map`` over a (chains, data) mesh in which
 
 * each device row holds a shard of the HMC chain ensemble,
 * each device column holds a shard of the N training rows,
 * the collapsed-bound sufficient statistics (``vfe_stats``) are computed on
-  local rows and ``psum``-reduced over the ``data`` axis (rides ICI).
+  local rows and ``psum``-reduced over the ``data`` axis.
 
 Gradient correctness note: the collapsed bound is NOT additive over data
 shards (the log|B| couples them), so the usual "psum the gradients" recipe is
@@ -15,7 +15,7 @@ the other shards' stats contributions. We therefore split the gradient by
 hand into (a) the *direct* path through the replicated Kmm/params (computed
 identically everywhere, no reduction) and (b) the *stats* path, whose local
 VJP is psum-reduced over ``data``. This decomposition is exactly the
-structure a fused Pallas stats(+VJP) kernel accelerates.
+structure a fused stats(+VJP) kernel would accelerate.
 
 This is the scaled-out version of ``BayesianSparseGPR_HMC.train_model``'s
 inner loop (reference single-process loop: models/bayesian_sgpr_hmc.py:88-158).

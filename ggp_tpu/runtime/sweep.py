@@ -32,9 +32,15 @@ def _get_lib():
     return _lib
 
 
-def run_sweep(commands: Sequence[str], jobs: int = 4, retries: int = 0,
+def run_sweep(commands: Sequence[str], jobs: int = 1, retries: int = 0,
               quiet: bool = True) -> Tuple[int, List[Tuple[int, float]]]:
-    """Returns (num_failed, [(status, seconds), ...])."""
+    """Returns (num_failed, [(status, seconds), ...]).
+
+    ``jobs`` defaults to 1 because each command is typically a JAX process,
+    and a JAX process reserves most of the GPU's memory when it starts: a
+    second one on the same card then fails for want of memory. Raise it
+    only for commands that stay off the device or that are each given
+    their share (``XLA_PYTHON_CLIENT_MEM_FRACTION``)."""
     lib = _get_lib()
     n = len(commands)
     arr = (ctypes.c_char_p * n)(*[c.encode() for c in commands])

@@ -4,7 +4,7 @@ Training-based metrics are chaotic on this barely-identifiable synthetic
 problem (any fp perturbation shifts the Adam trajectory by ~10%), so the
 hard goldens are *fixed-parameter* quantities — exact to fp noise — plus one
 wide-band end-to-end training sanity. The real UCI rows
-(benchmarks_nlpd_main.csv) need downloaded data; see PLAN.md item 3.
+(benchmarks_nlpd_main.csv) need downloaded data; see DATA.md.
 """
 
 import sys

@@ -67,6 +67,37 @@ def test_hmc_algorithm_standard_normal():
     assert np.abs(x.std() - 1.0) < 0.12
 
 
+@pytest.mark.parametrize("num_warmup,windows", [
+    (25, []), (99, []), (100, [(15, 90)]),
+    (500, [(75, 100), (100, 150), (150, 250), (250, 450)])])
+def test_warmup_schedule(num_warmup, windows):
+    """Stan's windows, and none when too few steps would follow the last
+    window for dual averaging to settle."""
+    from ggp_tpu.inference.hmc import warmup_schedule
+    in_w, w_end = (np.asarray(a) for a in warmup_schedule(num_warmup))
+    assert in_w.shape == w_end.shape == (num_warmup,)
+    expect_in = np.zeros(num_warmup, bool)
+    expect_end = np.zeros(num_warmup, bool)
+    for lo, hi in windows:
+        expect_in[lo:hi] = True
+        expect_end[hi - 1] = True
+    np.testing.assert_array_equal(in_w, expect_in)
+    np.testing.assert_array_equal(w_end, expect_end)
+
+
+def test_short_warmup_step_size_settles():
+    """A 25-step warmup (the alternating trainer's middle rounds) must end
+    on a usable step size in every chain, not one left several times too
+    large by a dual-averaging restart two steps before the end."""
+    logprob = lambda p: -0.5 * jnp.sum((p["x"] / 0.3) ** 2)
+    _, stats = run_nuts(logprob, {"x": jnp.zeros(15)}, jax.random.PRNGKey(4),
+                        NUTSConfig(num_warmup=25, num_samples=10),
+                        num_chains=16)
+    acc = np.asarray(stats["accept_prob"]).mean(axis=1)
+    assert np.asarray(stats["diverging"]).sum() == 0
+    assert acc.min() > 0.5, acc
+
+
 def test_ess_sanity():
     rng = np.random.default_rng(0)
     iid = rng.normal(size=(2, 1000))

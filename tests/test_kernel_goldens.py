@@ -1,15 +1,15 @@
 """Fixed-parameter kernel/ELBO goldens vs INDEPENDENT evaluations.
 
-VERDICT r3 item 6: the golden-metric suite recorded its constants on this
-repo's own f64 path, so it catches regressions but proves nothing about the
-math itself. The constants here were computed with mpmath at 30 significant
+The golden-metric suite records its constants on this repo's own f64 path,
+so it catches regressions but proves nothing about the math itself. The constants here were computed with mpmath at 30 significant
 digits straight from the textbook formulas the reference's gpytorch stack
 implements (reference kernel structure: models/sgpr.py:35-37 and the CO2
 composite experiments/co2_baseline.py:89-98) — none of them ever touched
 ggp_tpu code. The ELBO golden re-derives the collapsed Titsias bound in
-plain numpy f64 with scalar-loop grams (no sq_dist trick, no tri_solve), so
-a drift in kernels/base.py, kernels/composite.py, or models/sgpr.py
-semantics fails these tests even if the repo's own paths drift together.
+plain numpy f64 with explicit-difference grams (no sq_dist trick, no
+tri_solve; ggp_tpu.utils.np_reference), so a drift in kernels/base.py,
+kernels/composite.py, or models/sgpr.py semantics fails these tests even if
+the repo's own paths drift together.
 """
 
 import math
@@ -121,65 +121,50 @@ def test_co2_composite_gram_golden(noise):
 
 
 # ---------------------------------------------------------------------------
-# CO2 SGPR ELBO golden: collapsed Titsias bound re-derived in plain numpy
-# f64 with scalar-loop grams — independent of sq_dist / tri_solve /
-# safe_cholesky / _bound_core
+# SGPR ELBO golden: collapsed Titsias bound re-derived in plain numpy f64
+# (ggp_tpu.utils.np_reference: explicit-difference grams, np.linalg) —
+# independent of sq_dist / tri_solve / safe_cholesky / _bound_core
 # ---------------------------------------------------------------------------
 
-def _co2_entry_np(t: float) -> float:
-    """Scalar CO2 composite k(x, z) at the fixed params above (math-lib)."""
-    e = math.exp
-    ls_per, ls_prbf = e(0.3), e(-0.1)
-    seasonal = (e(0.2) * e(-2.0 * math.sin(math.pi * t) ** 2 / ls_per ** 2)
-                * e(-0.5 * (t / ls_prbf) ** 2))
-    trend = e(0.5) * e(-0.5 * (t / e(1.2)) ** 2)
-    alpha = e(0.15)
-    medium = e(-0.4) * (1.0 + (t / e(0.6)) ** 2 / (2.0 * alpha)) ** (-alpha)
-    nz = e(-1.0) * e(-0.5 * (t / e(-0.7)) ** 2)
-    return seasonal + trend + medium + nz
-
-
-def _titsias_bound_np(X, y, Z, log_noise, jitter):
-    """Reference math (collapsed VFE, Titsias 2009) in numpy f64 with the
-    package's outputscale-relative jitter convention applied explicitly."""
-    n, m = len(X), len(Z)
-    Kmm = np.array([[_co2_entry_np(a - b) for b in Z] for a in Z])
-    Kmn = np.array([[_co2_entry_np(a - b) for b in X] for a in Z])
-    kdiag = np.full(n, _co2_entry_np(0.0))
-    jit = jitter * max(np.mean(np.diag(Kmm)), 1.0)
-    L = np.linalg.cholesky(Kmm + jit * np.eye(m))
-    sigma2 = math.exp(log_noise)
-    A = np.linalg.solve(L, Kmn) / math.sqrt(sigma2)
-    B = A @ A.T + np.eye(m)
-    LB = np.linalg.cholesky(B)
-    c = np.linalg.solve(LB, A @ y) / math.sqrt(sigma2)
-    bound = -0.5 * n * math.log(2.0 * math.pi * sigma2)
-    bound -= np.sum(np.log(np.diag(LB)))
-    bound -= 0.5 * (y @ y / sigma2 - c @ c)
-    bound -= 0.5 * (kdiag.sum() - sigma2 * np.sum(A * A)) / sigma2
-    return bound
-
-
-def test_co2_sgpr_elbo_vs_independent_numpy():
+@pytest.mark.parametrize("kernel", ["co2", "rbf_ard"])
+def test_co2_sgpr_elbo_vs_independent_numpy(kernel):
+    from ggp_tpu.kernels import default_rbf
     from ggp_tpu.models.sgpr import sgpr_elbo, sgpr_elbo_fast
+    from ggp_tpu.utils import np_reference as ref
 
     rs = np.random.RandomState(7)
-    X = np.sort(rs.uniform(0.0, 5.0, 24))
-    y = np.sin(2.0 * np.pi * X) + 0.6 * X + 0.1 * rs.randn(24)
-    Z = np.linspace(0.2, 4.8, 6)
     log_noise = -1.6
     jitter = 1e-10
+    if kernel == "co2":
+        X = np.sort(rs.uniform(0.0, 5.0, 24))[:, None]
+        y = np.sin(2.0 * np.pi * X[:, 0]) + 0.6 * X[:, 0] \
+            + 0.1 * rs.randn(24)
+        Z = np.linspace(0.2, 4.8, 6)[:, None]
+        kern = co2_kernel("rbf")
+        kp = _co2_param_tree("rbf")
+        Kmm, Kmn = ref.co2_gram(Z, Z, kp), ref.co2_gram(Z, X, kp)
+        kdiag = np.full(len(X), ref.co2_gram([0.0], [0.0], kp)[0, 0])
+    else:
+        X = rs.randn(30, 3)
+        y = np.sin(X.sum(1)) + 0.1 * rs.randn(30)
+        Z = rs.randn(7, 3)
+        kern = default_rbf(ard=True)
+        kp = {"log_outputscale": jnp.asarray(0.3, jnp.float64),
+              "base": {"log_lengthscale": jnp.asarray([0.1, -0.2, 0.4],
+                                                      jnp.float64)}}
+        Kmm = ref.rbf_ard(Z, Z, [0.1, -0.2, 0.4], 0.3)
+        Kmn = ref.rbf_ard(Z, X, [0.1, -0.2, 0.4], 0.3)
+        kdiag = np.full(len(X), math.exp(0.3))
 
-    golden = _titsias_bound_np(X, y, Z, log_noise, jitter)
+    golden = ref.titsias_bound(Kmm, Kmn, kdiag, y, log_noise, jitter)
 
-    kern = co2_kernel("rbf")
-    params = {"kernel": _co2_param_tree("rbf"),
-              "Z": jnp.asarray(Z, jnp.float64)[:, None],
+    params = {"kernel": kp,
+              "Z": jnp.asarray(Z, jnp.float64),
               "log_noise": jnp.asarray(log_noise, jnp.float64)}
-    Xj = jnp.asarray(X, jnp.float64)[:, None]
+    Xj = jnp.asarray(X, jnp.float64)
     yj = jnp.asarray(y, jnp.float64)
     val = float(sgpr_elbo(kern, params, Xj, yj, jitter=jitter))
     np.testing.assert_allclose(val, golden, rtol=1e-9)
-    # the custom-call-minimised variant agrees up to fp reassociation
+    # the linalg-call-minimised variant agrees up to fp reassociation
     val_fast = float(sgpr_elbo_fast(kern, params, Xj, yj, jitter=jitter))
     np.testing.assert_allclose(val_fast, golden, rtol=1e-7)

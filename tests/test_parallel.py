@@ -206,6 +206,7 @@ def test_distributed_two_process_smoke(tmp_path):
     """Two real processes join via jax.distributed.initialize and agree on
     the global device count — the multi-host code path (SURVEY §5.8) on one
     machine."""
+    import os
     import subprocess
     import sys
 
@@ -224,8 +225,9 @@ print("proc", info["process_id"], "global", info["global_devices"], flush=True)
     procs = [subprocess.Popen([sys.executable, "-c", script, str(i)],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT,
-                              cwd="/root/repo",
-                              env={**__import__("os").environ,
+                              cwd=os.path.dirname(os.path.dirname(
+                                  os.path.abspath(__file__))),
+                              env={**os.environ,
                                    "JAX_PLATFORMS": "cpu",
                                    "XLA_FLAGS": ""})
              for i in range(2)]
@@ -240,93 +242,3 @@ print("proc", info["process_id"], "global", info["global_devices"], flush=True)
     for i, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"proc {i} failed:\n{out[-2000:]}"
         assert f"proc {i} global" in out
-
-
-# ---------------------------------------------------------------------------
-# Fused x mesh chain composition (VERDICT r4 item 2)
-# ---------------------------------------------------------------------------
-
-def _chains_only_mesh(n):
-    from jax.sharding import Mesh
-    return Mesh(np.asarray(jax.devices()[:n]), ("chains",))
-
-
-def _tiny_model(mesh=None, n=48, d=2, m=8):
-    from ggp_tpu.models import BayesianSparseGPR_HMC
-    rng = np.random.default_rng(5)
-    X = jnp.asarray(rng.normal(size=(n, d)), jnp.float32)
-    y = jnp.asarray(np.sin(np.asarray(X).sum(1))
-                    + 0.1 * rng.normal(size=n), jnp.float32)
-    return BayesianSparseGPR_HMC(X, y, Z_init=X[:m], mesh=mesh)
-
-
-def test_fused_mesh_gate_builds_local_kernel(monkeypatch):
-    """With a chains mesh attached and GGP_FUSED_MESH_INTERPRET=1 the
-    flagship builds the chain-batched kernel for the LOCAL block
-    (num_chains / mesh devices) instead of dropping to XLA — the round-4
-    `self.mesh is not None -> None` gate is gone."""
-    monkeypatch.setenv("GGP_FUSED_MESH_INTERPRET", "1")
-    model = _tiny_model(mesh=_chains_only_mesh(2))
-    builder = model._fused_multichain(4, 10, "hmc")
-    assert builder is not None
-    fused = builder(model.Z)
-    assert fused.num_chains == 2          # local block, not the global 4
-
-    # indivisible chain counts refuse (no partial blocks)
-    assert model._fused_multichain(5, 10, "hmc") is None
-    # a data-sharded mesh refuses (kernels consume replicated X/y)
-    model_ds = _tiny_model(mesh=make_mesh(8, chains_axis=2))
-    assert model_ds._fused_multichain(4, 10, "hmc") is None
-    # without the interpret opt-in, CPU still refuses (TPU-only default)
-    monkeypatch.delenv("GGP_FUSED_MESH_INTERPRET")
-    model2 = _tiny_model(mesh=_chains_only_mesh(2))
-    assert model2._fused_multichain(4, 10, "hmc") is None
-
-
-@pytest.mark.slow
-def test_fused_mesh_composition_end_to_end(monkeypatch):
-    """sample_hypers(num_chains=4, mesh=2 devices) runs the interpret-mode
-    chain-batched kernels PER DEVICE under shard_map: shapes/finiteness/
-    health hold and the two device blocks evolve with distinct randomness.
-
-    tune=50 is the MINIMUM healthy warmup for the fused dual averaging:
-    below ~30 steps DA has not recovered from its mu = log(10*eps0) pull
-    (Stan semantics) and chains sample at divergent eps — measured
-    identically at round-4 HEAD, i.e. a protocol floor, not a composition
-    artifact (round-5 probe: C=4 tune=12 -> div=1.0 on single chip too;
-    tune=50 -> accept 0.87, div 0)."""
-    monkeypatch.setenv("GGP_FUSED_MESH_INTERPRET", "1")
-    model = _tiny_model(mesh=_chains_only_mesh(2))
-    assert model._fused_multichain(4, 3, "hmc") is not None  # path active
-    model.sample_hypers(50, 12, num_chains=4, algorithm="hmc",
-                        num_leapfrog=3, key=jax.random.PRNGKey(0))
-    assert all(bool(jnp.all(jnp.isfinite(t)))
-               for t in jax.tree_util.tree_leaves(model.trace))
-    acc = np.asarray(model.stats["accept_prob"])
-    assert acc.shape == (4, 12)
-    assert 0.4 < float(acc.mean()) <= 1.0
-    assert float(np.asarray(model.stats["diverging"]).mean()) < 0.2
-    # per-device key folding: chain blocks 0-1 (device 0) and 2-3
-    # (device 1) must not be identical copies
-    ln = np.asarray(model.trace["log_noise"]).reshape(4, 12)
-    assert np.abs(ln[:2] - ln[2:]).max() > 1e-6
-
-
-@pytest.mark.slow
-def test_fused_mesh_composition_chunked_driver(monkeypatch):
-    """The host-dispatched chunked driver (build_sampler_chunked) also
-    composes fused x mesh (round 5): per-group shard_map over the chains
-    axis, per-device local kernels, warmup-chunk checkpointing intact."""
-    monkeypatch.setenv("GGP_FUSED_MESH_INTERPRET", "1")
-    model = _tiny_model(mesh=_chains_only_mesh(2))
-    assert model._fused_multichain(4, 2, "hmc") is not None
-    model.sample_hypers(50, 10, num_chains=4, algorithm="hmc",
-                        num_leapfrog=2, chunk_size=24,
-                        key=jax.random.PRNGKey(0))
-    assert all(bool(jnp.all(jnp.isfinite(t)))
-               for t in jax.tree_util.tree_leaves(model.trace))
-    acc = np.asarray(model.stats["accept_prob"])
-    assert acc.shape == (4, 10)
-    assert 0.4 < float(acc.mean()) <= 1.0
-    ln = np.asarray(model.trace["log_noise"]).reshape(4, 10)
-    assert np.abs(ln[:2] - ln[2:]).max() > 1e-6   # device blocks distinct

@@ -140,7 +140,7 @@ def test_sghmc_posterior_matches_full_hmc():
 
     ref, _ = run_nuts(logpost_full, init, jax.random.PRNGKey(0),
                       NUTSConfig(num_warmup=400, num_samples=800))
-    # tuned on this problem (see PERF.md): mixing needs eps ~1e-2 premult
+    # tuned on this problem: mixing needs eps ~1e-2 premult
     # units; the noise marginal's KS is dominated by the nonlinear-in-stats
     # minibatch bias, which shrinks with batch size (0.41 at B=128 ->
     # 0.23 at B=224 here)

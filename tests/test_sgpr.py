@@ -129,14 +129,12 @@ def test_elbo_fast_parity():
 
 
 def test_stats_bound_f64_core_parity(rng):
-    """Round 5: the f64 M x M epilogue (GGP_STATS_F64 / f64_core=True)
-    matches the f32 branch on benign problems, pads non-multiple-of-32 M,
-    and never NaNs where the f32 branch is finite. Pure-ops blocked
-    factorisation — no f64 lapack custom calls (they fault on TPU).
-    Measured limitation (PERF.md round 5): at collapsed-outputscale/
+    """The f64 M x M epilogue (GGP_STATS_F64 / f64_core=True) matches the
+    f32 branch on benign problems, handles M that is not a multiple of 32,
+    and never NaNs where the f32 branch is finite. At collapsed-outputscale/
     large-lengthscale modes the f32 STATS are already non-PSD beyond any
-    epilogue precision — the f64 core extends the finite envelope but
-    does not repair garbage inputs."""
+    epilogue precision — the f64 core extends the finite envelope but does
+    not repair garbage inputs."""
     from ggp_tpu.models.sgpr import sgpr_elbo_from_stats, vfe_stats
 
     kern = default_rbf(ard=True)

@@ -100,9 +100,7 @@ def test_bayesian_svgp_regression(data):
     # hyper posterior has learned non-trivial structure
     assert float(jnp.abs(m.params["hyper_mu"]).max()) > 0.05
     # reference-mode predictive (theta = exp(softplus(s)),
-    # models/bayesian_svgp.py:199 feeding :121-124) runs and differs — the
-    # A/B quantification of this deviation is in PERF.md (round 3: NLPD
-    # -0.13 exp vs +1.55 ref_softplus on the 1-D synthetic benchmark)
+    # models/bayesian_svgp.py:199 feeding :121-124) runs and differs
     means_r, vars_r = m.mixture_posterior_predictive(
         X, num_samples=50, transform="ref_softplus")
     assert means_r.shape == means.shape
